@@ -4,22 +4,35 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, `nvcc` (the kernels build from swiftmp3_tpu_torch/ops/csrc
-at first use) and the repository checkout; imports nothing of JAX. Phases:
+at first use), `g++` (the native frame renderer) and the repository
+checkout; imports nothing of JAX and nothing of the JAX package (its
+reference streams are committed files). Phases:
 
   1. card: name and power limit, kernel build time;
   2. K1 rate sweep: kernel vs plain version, bit-exact, both quantizer laws,
      on a 37-granule input, on granules at FMA knife edges and on the main
      path's 131 072 granules;
   3. K2 pack: kernel vs plain version, bit-exact, at the main path's shape and
-     the reference tests' shapes, and against the host Huffman packer;
+     the reference tests' shapes, and against the port's host Huffman packer;
+  3b. K3 polyphase filterbank: kernel vs plain version and vs the folded
+     matmul within 2e-5 (x identical) at the main path's shape (512 rows,
+     T = 128) and at session shapes (T = 8, T = 3); then the path that runs
+     K3, the filterbank stage of tools/torch_profile_step.py, with launch
+     counts read around it;
   4. the main path: BatchEncoder at 256 streams x 128 frames, 128 kbps CBR
      stereo 44.1 kHz, 3 steps of unique int16 audio rendered to bytes, with
      launch counts read around it; every stream's frame walk is checked;
-  5. parity: the 8 compat fixture rows through new_session(..., "cuda")
-     against the JAX backend's committed streams, and 2 main-path streams
-     and the ULP-telemetry corpus against the golden numpy backend:
-     structurally equal, byte flips pinned;
+  5. parity: the 8 compat fixture rows through new_session(o) against the
+     JAX backend's committed streams (tests/fixtures/*.tpu.mp3), and 2
+     main-path streams and the ULP-telemetry corpus against the golden numpy
+     backend's frozen streams (tests/fixtures/torch/): structurally equal,
+     byte flips pinned;
   6. a `kernels` JSON line, the card line, and the result line.
+
+Each kernel's bound_ms is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its lane operations over 33.5 T/s (the
+67 TFLOP/s of fp32 outside the tensor cores, an FMA counting as one lane
+operation), the H100 SXM's published peaks, from this run's shapes.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -44,41 +57,18 @@ GOLDEN_FLIP_CEILING = 4  # over 2 main-path streams (256 frames)
 # the JAX backend's compat ceiling on the tests/test_ulp_telemetry corpus
 TELEMETRY_FLIP_CEILING = 2  # over 6 classes (72 frames)
 
-B_MAIN, T_MAIN, STEPS_MAIN = 256, 128, 3
+STEPS_MAIN = 3
+K3_TOLERANCE = 2e-5  # tests/test_pallas.py, the JAX package's own for K3
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+LANE_OPS_PER_S = 67e12 / 2  # fp32 outside the tensor cores, FMA = 1 lane op
 
 
-def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms over reps runs (CUDA events)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _bench_audio(rng, B: int, T: int, channels: int, sample_rate: int) -> np.ndarray:
-    """Speech/music-like correlated audio, int16 interleaved [B, T, 1152*ch];
-    unique content per call (the generator of bench.py)."""
-    t_ax = np.arange(T * 1152) / sample_rate
-    base = sum(
-        a * np.sin(2 * np.pi * f * t_ax)
-        for a, f in [(0.35, 220.0), (0.2, 467.0), (0.1, 1313.0)]
-    )
-    ar = rng.standard_normal((B, T * 1152)).astype(np.float32)
-    for i in range(1, 8):
-        ar[:, i:] += ar[:, :-i] / (i + 1)
-    ar *= 0.05 / np.abs(ar).max()
-    sig = (base[None, :] * rng.uniform(0.5, 1.0, (B, 1)) + ar).astype(np.float32)
-    mono = (np.clip(sig, -0.99, 0.99) * 32767).astype(np.int16)
-    return np.repeat(mono[..., None], channels, axis=-1).reshape(B, T, 1152 * channels)
+def _bound(nbytes: float, lane_ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of the memory and operation times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = lane_ops / LANE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _frames(data: bytes) -> list[bytes]:
@@ -98,17 +88,16 @@ def _compare_streams(got: bytes, ref: bytes, what: str) -> int:
     return sum(a != b for a, b in zip(fg, fr))
 
 
-def _sweep_inputs(pcm_i16: np.ndarray, options, device):
-    """The main path's rate-sweep inputs (mag, gstart) for one chunk, by the
-    port's own phase-1 functions (stereo, fresh carry)."""
+def _sweep_inputs(chunk, options, device):
+    """The main path's rate-sweep inputs (mag, gstart) for one chunk
+    [B, 2, T*1152], by the port's own phase-1 functions (stereo, fresh
+    carry)."""
     import torch
 
     from swiftmp3_tpu_torch.models.pipeline import init_carry
     from swiftmp3_tpu_torch.ops import dsp
 
-    B, T = pcm_i16.shape[:2]
-    pcm = dsp.ingest(torch.from_numpy(pcm_i16).to(device)).reshape(B, -1)
-    chunk = torch.stack([pcm[:, 0::2], pcm[:, 1::2]], dim=1)  # [B, 2, T*1152]
+    B, T = chunk.shape[0], chunk.shape[-1] // 1152
     carry = init_carry(B, options, device)
     S, _ = dsp.polyphase_chunk_matmul(carry["fb_hist"], chunk)
     block, _ = dsp.transient_frame(chunk.reshape(B, 2, T, 2, 576))
@@ -126,15 +115,24 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
 
-    from swiftmp3_tpu.encoder import EncoderSession
-    from swiftmp3_tpu.io.huffman_pack import pack_frame_main_data
-    from swiftmp3_tpu.options import MP3EncoderOptions, Mode
     from swiftmp3_tpu_torch.encoder import new_session
+    from swiftmp3_tpu_torch.io.huffman_pack import pack_frame_main_data
     from swiftmp3_tpu_torch.ops import dsp, kernels
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
     from swiftmp3_tpu_torch.parallel.batch import BatchEncoder
-    from tests.fixture_lib import FIXTURES, fixture_path, make_signal
-    from tests.test_ulp_telemetry import _corpus_stereo
-    from tests.torch_inputs import knife_edge_sweep_input
+    from tests.torch_inputs import (
+        B_MAIN,
+        COMPAT_FIXTURES,
+        MAIN_OPTIONS,
+        T_MAIN,
+        bench_audio,
+        fixture_path,
+        golden_path,
+        golden_streams,
+        knife_edge_sweep_input,
+        make_signal,
+    )
+    from tools.torch_profile_step import cuda_ms, filterbank_input, filterbank_stage
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -147,12 +145,13 @@ def main() -> int:
     kernels.build_kernels()
     print(f"[card] kernel build {time.perf_counter() - t0:.2f} s", flush=True)
 
-    opts = MP3EncoderOptions(mode=Mode.STEREO, bitrate_kbps=128, sample_rate=44100)
+    opts = MP3EncoderOptions(**MAIN_OPTIONS)
     rng = np.random.default_rng(0)
     audio = [
-        _bench_audio(rng, B_MAIN, T_MAIN, opts.channels, opts.sample_rate)
+        bench_audio(rng, B_MAIN, T_MAIN, opts.channels, opts.sample_rate)
         for _ in range(STEPS_MAIN)
     ]
+    chunk_main = filterbank_input(audio[0], dev)  # [256, 2, 128*1152]
     report = {}
 
     # ---- 2. K1 rate sweep vs its plain version -------------------------------
@@ -161,7 +160,7 @@ def main() -> int:
     spec[3] = 0.0  # silent granule
     mag_s = torch.from_numpy((np.maximum(np.abs(spec), 1e-10) ** 0.75).astype(np.float32)).to(dev)
     g_s = torch.from_numpy(rs.integers(0, 256, 37).astype(np.int32)).to(dev)
-    mag_m, g_m = _sweep_inputs(audio[0], opts, dev)
+    mag_m, g_m = _sweep_inputs(chunk_main, opts, dev)
     n_main = g_m.numel()
     err = 0
     for iso in (False, True):
@@ -180,16 +179,23 @@ def main() -> int:
     if err:
         raise AssertionError(f"rate_sweep kernel disagrees with its plain version (max {err})")
     flat_m, flat_g = mag_m.reshape(-1, 576), g_m.reshape(-1)
-    ms = _cuda_ms(lambda: kernels.rate_sweep(flat_m, flat_g), reps=20)
+    ms = cuda_ms(lambda: kernels.rate_sweep(flat_m, flat_g), reps=20)
 
     def plain_sweep():
         for s in range(0, n_main, 8192):
             kernels.rate_sweep_plain(flat_m[s : s + 8192], flat_g[s : s + 8192])
 
-    plain_ms = _cuda_ms(plain_sweep, reps=3, warmup=1)
-    report["rate_sweep"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    plain_ms = cuda_ms(plain_sweep, reps=3, warmup=1)
+    # read mag and gstart, write bits and bv; per granule and gain: 576 x
+    # (multiply, add, floor, min, convert) + 288 x (index, lookup, add, max)
+    bound_ms, bound_by = _bound(
+        4 * (flat_m.numel() + n_main + 2 * 20 * n_main), n_main * 20 * (576 * 5 + 288 * 4)
+    )
+    report["rate_sweep"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     print(f"[K1] rate_sweep bit-exact, both laws, N=37, FMA knife edges and N={n_main}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
 
     # ---- 3. K2 pack vs its plain version and the host packer ------------------
     rp = np.random.default_rng(7)
@@ -207,8 +213,11 @@ def main() -> int:
         pby, ptot = kernels.pack_plain(c_d, n_d, cap)
         err = max(err, int((by.int() - pby.int()).abs().max()), int((tot - ptot).abs().max()))
         if F == 32768:
-            ms = _cuda_ms(lambda: kernels.pack(c_d, n_d, cap), reps=20)
-            plain_ms = _cuda_ms(lambda: kernels.pack_plain(c_d, n_d, cap), reps=5)
+            ms = cuda_ms(lambda: kernels.pack(c_d, n_d, cap), reps=20)
+            plain_ms = cuda_ms(lambda: kernels.pack_plain(c_d, n_d, cap), reps=5)
+            # read chunks and nbits, write the images and totals; per slot:
+            # scan add, offset, shift, up to three byte ORs
+            bound_ms, bound_by = _bound(4 * 2 * F * P + F * cap + 4 * F, 6 * F * P)
     q = rp.integers(-15, 16, size=(5, 4, 576)).astype(np.int32)
     bvh = rp.integers(0, 289, size=(5, 4)).astype(np.int32)
     chunks, nbits = dsp.pair_chunks_device(torch.from_numpy(q).to(dev), torch.from_numpy(bvh).to(dev))
@@ -220,12 +229,54 @@ def main() -> int:
             raise AssertionError(f"pack kernel disagrees with the host packer on frame {f}")
     if err:
         raise AssertionError(f"pack kernel disagrees with its plain version (max {err})")
-    report["pack"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    report["pack"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     print(f"[K2] pack bit-exact at 5 shapes and vs the host packer: "
-          f"F=32768 P=1152 cap=894 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+          f"F=32768 P=1152 cap=894 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+
+    # ---- 3b. K3 polyphase filterbank vs its plain version and the matmul ------
+    hist_main = chunk_main[..., -480:].roll(1, dims=0).contiguous()  # nonzero history
+    err = 0
+    for rows, T in ((B_MAIN, T_MAIN), (1, 8), (3, 3)):
+        hist = hist_main[:rows].contiguous()
+        pcm = chunk_main[:rows, :, : T * 1152].contiguous()
+        S, x = kernels.polyphase_chunk(hist, pcm)
+        S_p, x_p = kernels.polyphase_chunk_plain(hist, pcm)
+        S_m, _ = dsp.polyphase_chunk_matmul(hist, pcm)
+        e_p = float((S - S_p).abs().max())
+        e_m = float((S - S_m).abs().max())
+        if not (e_p <= K3_TOLERANCE and e_m <= K3_TOLERANCE and torch.equal(x, x_p)):
+            raise AssertionError(
+                f"polyphase kernel at {rows * 2} rows x T={T}: max err {e_p:.3g} vs plain, "
+                f"{e_m:.3g} vs the folded matmul (tolerance {K3_TOLERANCE}), "
+                f"x equal {torch.equal(x, x_p)}"
+            )
+        err = max(err, e_p)
+        print(f"[K3] polyphase {rows * 2} rows x T={T} ({36 * T} windows): max err "
+              f"{e_p:.3g} vs plain, {e_m:.3g} vs folded matmul, x identical", flush=True)
+    # the path that runs K3: the filterbank stage of tools/torch_profile_step.py
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    fb = filterbank_stage(hist_main, chunk_main)
+    torch.cuda.synchronize()
+    k3_launches = kernels.LAUNCHES["polyphase"]
+    if k3_launches <= 0:
+        raise AssertionError("the filterbank stage never launched kernel polyphase")
+    n_rows, n_pcm = 2 * B_MAIN, chunk_main.shape[-1]
+    n_out = n_rows * (n_pcm // 32) * 32
+    # read hist and pcm, write S; 16 + 64 FMAs per output
+    bound_ms, bound_by = _bound(4 * (n_rows * 480 + n_rows * n_pcm + n_out), 80 * n_out)
+    report["polyphase"] = {"max_abs_err": err, "ms": fb["ms"], "plain_ms": fb["plain_ms"],
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "library_ms": fb["library_ms"]}
+    print(f"[K3] filterbank stage, {n_rows} rows x T={T_MAIN}, {card}: kernel {fb['ms']:.4f} ms, "
+          f"plain {fb['plain_ms']:.4f} ms, folded matmul {fb['matmul_ms']:.4f} ms, "
+          f"conv1d {fb['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"launches {k3_launches}", flush=True)
 
     # ---- 4. the main path -----------------------------------------------------
-    enc = BatchEncoder(opts, B_MAIN, T_MAIN, dev)
+    enc = BatchEncoder(opts, B_MAIN, T_MAIN)
     final = np.zeros((B_MAIN, T_MAIN), dtype=bool)
     valid = np.ones((B_MAIN, T_MAIN), dtype=bool)
     streams = [bytearray() for _ in range(B_MAIN)]
@@ -247,11 +298,11 @@ def main() -> int:
             wall_s.append(time.perf_counter() - w0)
         for b, tail in enumerate(enc.flush()):
             streams[b] += tail
-        launches = dict(kernels.LAUNCHES)
+        main_launches = dict(kernels.LAUNCHES)
     finally:
         enc.close()
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("rate_sweep", "pack"):
+        if main_launches[name] <= 0:
             raise AssertionError(f"the main path never launched kernel {name}")
     n_frames = STEPS_MAIN * T_MAIN
     for b, data in enumerate(streams):
@@ -264,16 +315,14 @@ def main() -> int:
           f"step device ms {['%.2f' % t for t in step_ms]} (steady {steady:.2f} ms, "
           f"{audio_s / (steady / 1e3):.1f} audio-s/s); step+render wall s "
           f"{['%.3f' % t for t in wall_s]}; {B_MAIN} streams x {n_frames} frames walk OK; "
-          f"launches {launches}", flush=True)
+          f"launches {main_launches}", flush=True)
 
     # ---- 5. parity ---------------------------------------------------------
     fixture_flips, fixture_frames = 0, 0
-    for name, kw, sig_kind, seconds, seed in FIXTURES:
+    for name, kw, sig_kind, seconds, seed in COMPAT_FIXTURES:
         o = MP3EncoderOptions(**kw)
-        if o.spec_strict_entropy:
-            continue  # the 8 compat rows
         pcm = make_signal(sig_kind, seconds, o.sample_rate, o.channels, seed)
-        s = new_session(o, "cuda")
+        s = new_session(o)
         got = s.encode(pcm) + s.flush()
         with open(fixture_path(name, "tpu"), "rb") as fh:
             ref = fh.read()
@@ -281,29 +330,24 @@ def main() -> int:
         fixture_flips += flips
         fixture_frames += len(_frames(ref))
         print(f"[parity] {name}: structure equal, {flips} frames differ", flush=True)
-    def vs_golden(pcms, what):
-        flips = frames = 0
-        for i, pcm in enumerate(pcms):
-            s = new_session(opts, "cuda")
-            got = s.encode(pcm) + s.flush()
-            g = EncoderSession(opts, backend="numpy")
-            ref = g.encode(pcm) + g.flush()
-            flips += _compare_streams(got, ref, f"{what} {i} vs golden")
-            frames += len(_frames(ref))
-        return flips, frames
-
-    golden_flips, golden_frames = vs_golden(
-        [audio[0][b].reshape(-1) for b in range(2)], "main-path stream"
-    )
-    corpus_flips, corpus_frames = vs_golden(list(_corpus_stereo().values()), "corpus class")
+    flips = {"main": 0, "corpus": 0}
+    frames = {"main": 0, "corpus": 0}
+    for stem, pcm in golden_streams(audio[0]).items():
+        s = new_session(opts)
+        got = s.encode(pcm) + s.flush()
+        with open(golden_path(stem), "rb") as fh:
+            ref = fh.read()
+        group = stem.split("_")[0]
+        flips[group] += _compare_streams(got, ref, f"{stem} vs golden")
+        frames[group] += len(_frames(ref))
     print(f"[parity] fixtures {fixture_flips}/{fixture_frames} frames differ "
-          f"(ceiling {FIXTURE_FLIP_CEILING}); golden {golden_flips}/{golden_frames} "
+          f"(ceiling {FIXTURE_FLIP_CEILING}); golden {flips['main']}/{frames['main']} "
           f"(ceiling {GOLDEN_FLIP_CEILING}); telemetry corpus vs golden "
-          f"{corpus_flips}/{corpus_frames} (ceiling {TELEMETRY_FLIP_CEILING})", flush=True)
+          f"{flips['corpus']}/{frames['corpus']} (ceiling {TELEMETRY_FLIP_CEILING})", flush=True)
     if (
         fixture_flips > FIXTURE_FLIP_CEILING
-        or golden_flips > GOLDEN_FLIP_CEILING
-        or corpus_flips > TELEMETRY_FLIP_CEILING
+        or flips["main"] > GOLDEN_FLIP_CEILING
+        or flips["corpus"] > TELEMETRY_FLIP_CEILING
     ):
         raise AssertionError("byte flips above the pinned ceiling")
 
@@ -313,7 +357,11 @@ def main() -> int:
          "swiftmp3_tpu/ops/pallas_kernels.py:347"),
         ("pack", "swiftmp3_tpu_torch/ops/csrc/pack.cu",
          "swiftmp3_tpu/ops/pallas_kernels.py:237"),
+        ("polyphase", "swiftmp3_tpu_torch/ops/csrc/polyphase.cu",
+         "swiftmp3_tpu/ops/pallas_kernels.py:77"),
     ]
+    # K1 and K2 counted on the main path, K3 on the filterbank stage
+    launches = {**main_launches, "polyphase": k3_launches}
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[n], **report[n]}

@@ -27,12 +27,11 @@ from typing import List
 import numpy as np
 import torch
 
-from swiftmp3_tpu.io.framing import FrameResult
-from swiftmp3_tpu.io.sideinfo import GranuleInfo
-from swiftmp3_tpu.options import MP3EncoderOptions, Mode
-from swiftmp3_tpu.tables import bitrate_index, bitrate_value, mode_bits
-
+from ..io.framing import FrameResult
+from ..io.sideinfo import GranuleInfo
 from ..ops import dsp, kernels
+from ..options import MP3EncoderOptions, Mode
+from ..tables import bitrate_index, bitrate_value, mode_bits
 
 MAX_FRAME_MAIN_BITS = 1152 * 15  # all pair slots at 15 bits
 
@@ -80,6 +79,18 @@ def check_supported(options: MP3EncoderOptions) -> None:
                 f"{name} is not in the PyTorch port yet (ROADMAP Queue 1 "
                 f"item {item}); this slice covers the compat chunk program"
             )
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device. A CUDA device raises when no card is
+    present: nothing falls back to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but no CUDA card is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
 
 
 def init_carry(
@@ -458,15 +469,15 @@ def carry_to_jax(carry: dict) -> dict:
 
 
 class TorchBackend:
-    """Single-stream session backend on `device`: fixed-size chunks of
-    frames, partial chunks padded with valid=False lanes (twin of
-    pipeline.TPUBackend)."""
+    """Single-stream session backend on `device` (the card by default):
+    fixed-size chunks of frames, partial chunks padded with valid=False
+    lanes (twin of pipeline.TPUBackend)."""
 
     CHUNK = 8
 
-    def __init__(self, options: MP3EncoderOptions, device):
+    def __init__(self, options: MP3EncoderOptions, device="cuda"):
         self.options = options
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._run = make_chunk_fn(options)
         self.carry = init_carry(1, options, self.device)
 

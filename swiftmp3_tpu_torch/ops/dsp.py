@@ -7,8 +7,9 @@ rows), same float32 operation order where the JAX code fixes one.
 The JAX module avoids TPU gathers with where-tree lookups, exact `ldexp`
 step reconstruction and one-hot selects. Here the same values come the way a
 GPU computes them: 256-entry tables indexed directly. The tables are built
-from `swiftmp3_tpu.tables` in numpy float64 exactly as the JAX module builds
-its constants (tests hold them equal bit for bit).
+from the port's own copy of the ISO tables (`swiftmp3_tpu_torch.tables`) in
+numpy float64 exactly as the JAX module builds its constants (tests hold
+them equal bit for bit).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from swiftmp3_tpu.tables import (
+from ..tables import (
     ALIASING_CA,
     ALIASING_CS,
     ANALYSIS_MATRIX,
@@ -141,6 +142,10 @@ def build_region_bounds(sample_rate: int) -> np.ndarray:
     return np.cumsum(band_table(sample_rate)).astype(np.int32)  # [21]
 
 
+# The reference reverses the 512 buffer before windowing; the constants fold
+# the reversal in (twins of dsp._WINDOW_REV and dsp._MATRIX_REV_T).
+WINDOW_REV = np.ascontiguousarray(ISO_WINDOW[::-1], dtype=np.float32)  # [512]
+MATRIX_REV_T = np.ascontiguousarray(ANALYSIS_MATRIX[:, ::-1].T, dtype=np.float32)  # [64, 32]
 POLY_FOLD = build_polyphase_fold()
 MDCT_FOLD_P, MDCT_FOLD_C = build_mdct_fold()
 SIGN_FLAT = build_sign_flat()
@@ -151,6 +156,8 @@ BITRATE_VALUES = np.asarray(BITRATE_TABLE_V1, dtype=np.int32)
 BITRATE_VALUES_V2 = np.asarray(BITRATE_TABLE_V2, dtype=np.int32)
 
 _CONSTANTS = {
+    "window_rev": WINDOW_REV,
+    "matrix_rev_t": MATRIX_REV_T,
     "poly_fold": POLY_FOLD,
     "mdct_p": MDCT_FOLD_P,
     "mdct_c": MDCT_FOLD_C,

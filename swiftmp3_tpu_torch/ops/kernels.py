@@ -1,8 +1,9 @@
-"""The hand-written CUDA kernels of the compat path, their wrappers and their
-plain PyTorch versions.
+"""The hand-written CUDA kernels of the port, their wrappers and their plain
+PyTorch versions: one for each Pallas kernel of the reference.
 
-    rate_sweep  <- swiftmp3_tpu/ops/pallas_kernels.py:rate_sweep_pallas (K1)
-    pack        <- swiftmp3_tpu/ops/pallas_kernels.py:pack_pallas       (K2)
+    rate_sweep  <- swiftmp3_tpu/ops/pallas_kernels.py:rate_sweep_pallas      (K1)
+    pack        <- swiftmp3_tpu/ops/pallas_kernels.py:pack_pallas            (K2)
+    polyphase   <- swiftmp3_tpu/ops/pallas_kernels.py:polyphase_chunk_pallas (K3)
 
 Dispatch is by the device of the input tensor, with no fallback: a CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or raises
@@ -29,18 +30,20 @@ import torch
 N_GAIN_CANDIDATES = 20  # the reference's maxIterations
 _PAIRS = 288
 
-LAUNCHES = {"rate_sweep": 0, "pack": 0}
+LAUNCHES = {"rate_sweep": 0, "pack": 0, "polyphase": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = {"rate_sweep": "rate_sweep.cu", "pack": "pack.cu"}
+SOURCES = {"rate_sweep": "rate_sweep.cu", "pack": "pack.cu", "polyphase": "polyphase.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    # no FMA contraction: the quantizer rounds mag*inv, then +0.5, then floors
-    "--fmad=false",
 ]
+EXTRA_NVCC_FLAGS = {
+    # no FMA contraction: K1's quantizer rounds mag*inv, then +0.5, then floors
+    "rate_sweep": ["--fmad=false"],
+}
 
 _vp = ctypes.c_void_p
 _SIGNATURES = {
@@ -48,6 +51,8 @@ _SIGNATURES = {
     "rate_sweep": [_vp, _vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, _vp],
     # (chunks, nbits, out, total_bits, F, P, cap, stream)
     "pack": [_vp, _vp, _vp, _vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, _vp],
+    # (hist, pcm, wrev, mrev_t, S, n_rows, n_pcm, stream)
+    "polyphase": [_vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, ctypes.c_longlong, _vp],
 }
 
 _build_lock = threading.Lock()
@@ -87,7 +92,7 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
             if os.path.exists(so_path) and os.path.getmtime(so_path) >= os.path.getmtime(src_path):
                 continue
             tmp = os.path.join(BUILD_DIR, f"lib{name}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path]
+            cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_NVCC_FLAGS.get(name, []), "-o", tmp, src_path]
             procs[name] = (
                 subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -271,3 +276,78 @@ def pack(
     )
     LAUNCHES["pack"] += 1
     return out, total
+
+
+# --- K3: the polyphase analysis filterbank --------------------------------------
+
+HIST = 480  # filterbank history samples carried between chunks
+
+
+def _polyphase_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    from .dsp import constant
+
+    return constant("window_rev", device), constant("matrix_rev_t", device)
+
+
+def polyphase_chunk_plain(
+    hist: torch.Tensor, pcm: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: the stepwise filterbank (dsp.py:259-281). With A
+    the signal in 32-sample rows and Y[u] = (A[u], A[u+1]), the 64-phase
+    partial sums are 8 shifted multiply-adds on Y with the reversed window,
+    then one [64, 32] fp32 product with the reversed cosine matrix. Takes any
+    leading shape and any T. Returns (S [..., 36T, 32], x = hist | pcm)."""
+    wrev, mrev_t = _polyphase_tables(hist.device)
+    w8 = wrev.reshape(8, 64)
+    x = torch.cat([hist, pcm], dim=-1)
+    n_steps = x.shape[-1] // 32  # 15 + 36T
+    T36 = n_steps - 15
+    A = x.reshape(*x.shape[:-1], n_steps, 32)
+    Y = torch.cat([A[..., :-1, :], A[..., 1:, :]], dim=-1)  # [..., n_steps - 1, 64]
+    partial = None
+    for m in range(8):
+        term = Y[..., 2 * m : 2 * m + T36, :] * w8[m]
+        partial = term if partial is None else partial + term
+    return torch.matmul(partial, mrev_t), x
+
+
+def polyphase_subbands(hist: torch.Tensor, pcm: torch.Tensor) -> torch.Tensor:
+    """K3 alone: the subband samples S [..., 36T, 32] of hist | pcm, without
+    the concatenated signal. hist: [..., 480]; pcm: [..., n] float32 with n
+    a whole number of frames (a multiple of 576: 1152 samples at MPEG-1, 576
+    at LSF). A CPU tensor takes the plain version."""
+    if _on_cpu(hist):
+        return polyphase_chunk_plain(hist, pcm)[0]
+    _require_cuda(hist, pcm)
+    lead = tuple(hist.shape[:-1])
+    n_pcm = pcm.shape[-1]
+    _require(hist, "hist", torch.float32, lead + (HIST,))
+    _require(pcm, "pcm", torch.float32, lead + (n_pcm,))
+    if n_pcm % 576:
+        raise ValueError(f"pcm: {n_pcm} samples is not a whole number of frames (576)")
+    if hist.data_ptr() % 16 or pcm.data_ptr() % 16:
+        raise ValueError("hist, pcm: the kernel reads float4 (16-byte aligned)")
+    n = 1
+    for d in lead:
+        n *= d
+    S = torch.empty(lead + (n_pcm // 32, 32), dtype=torch.float32, device=hist.device)
+    if n == 0 or n_pcm == 0:
+        return S
+    wrev, mrev_t = _polyphase_tables(hist.device)
+    _launch(
+        "polyphase", hist.device,
+        hist.data_ptr(), pcm.data_ptr(), wrev.data_ptr(), mrev_t.data_ptr(),
+        S.data_ptr(), n, n_pcm,
+    )
+    LAUNCHES["polyphase"] += 1
+    return S
+
+
+def polyphase_chunk(
+    hist: torch.Tensor, pcm: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ISO analysis filterbank over a chunk, with the contract of
+    polyphase_chunk_pallas: hist [..., 480], pcm [..., T*1152] ->
+    (S [..., 36T, 32], x = hist | pcm [..., 480 + T*1152]). The kernel
+    computes S; x is concatenated outside it, as the plain version does."""
+    return polyphase_subbands(hist, pcm), torch.cat([hist, pcm], dim=-1)

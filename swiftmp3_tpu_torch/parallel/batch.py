@@ -3,8 +3,8 @@
 
 `BatchEncoder` encodes B independent streams in lockstep: PCM rides as
 batch-major [B, T, frame] chunks, the chunk program runs on the device, and
-each stream's packed outputs render to bytes through the shared native
-renderer (`swiftmp3_tpu.native.NativeStreamRenderer`). Pinned host buffers
+each stream's packed outputs render to bytes through the port's native
+renderer (`swiftmp3_tpu_torch.native.NativeStreamRenderer`). Pinned host buffers
 with non-blocking copies stand in for the JAX version's `device_put` and
 `copy_to_host_async`, so uploads and downloads overlap other work.
 """
@@ -18,29 +18,25 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from swiftmp3_tpu.native import NativeStreamRenderer, native_available
-from swiftmp3_tpu.options import MP3EncoderOptions
-
-from ..models.pipeline import fetch_outputs, init_carry, make_chunk_fn
+from ..encoder import GAPLESS_DECODER_DELAY, GAPLESS_ENCODER_DELAY
+from ..models.pipeline import fetch_outputs, init_carry, make_chunk_fn, resolve_device
+from ..native import NativeStreamRenderer
+from ..options import MP3EncoderOptions
 
 
 class BatchEncoder:
-    """Encode a fixed-size batch of streams on `device` with one chunk
-    program. The outputs of a step stay readable until `drain` is called on
-    them; several steps may be in flight."""
+    """Encode a fixed-size batch of streams on `device` (the card by default)
+    with one chunk program. The outputs of a step stay readable until
+    `drain` is called on them; several steps may be in flight."""
 
     def __init__(
-        self, options: MP3EncoderOptions, batch: int, frames_per_step: int, device
+        self, options: MP3EncoderOptions, batch: int, frames_per_step: int, device="cuda"
     ):
         self._run = make_chunk_fn(options)
-        if not native_available():
-            raise RuntimeError(
-                "the native frame renderer (swiftmp3_tpu/native) failed to build"
-            )
         self.options = options
         self.batch = batch
         self.frames_per_step = frames_per_step
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._pinned = self.device.type == "cuda"
         render_threads = min(os.cpu_count() or 1, 8)
         self._pool = (
@@ -131,18 +127,17 @@ class BatchEncoder:
 def encode_batch(
     options: MP3EncoderOptions,
     streams: Sequence[np.ndarray],
-    device,
+    device="cuda",
     frames_per_step: int = 64,
 ) -> List[bytes]:
-    """Encode N independent PCM streams on `device`; returns MP3 bytes per
-    stream. Equivalent to one session per stream (encode + flush); streams
-    may differ in length (twin of batch.encode_batch without the mesh)."""
+    """Encode N independent PCM streams on `device` (the card by default);
+    returns MP3 bytes per stream. Equivalent to one session per stream
+    (encode + flush); streams may differ in length (twin of
+    batch.encode_batch without the mesh)."""
     n_streams = len(streams)
     ch = options.channels
     frame_len = options.samples_per_frame * ch
     if options.gapless_info:
-        from swiftmp3_tpu.encoder import GAPLESS_DECODER_DELAY, GAPLESS_ENCODER_DELAY
-
         tail = (GAPLESS_ENCODER_DELAY + GAPLESS_DECODER_DELAY) * ch
         streams = [
             np.concatenate([np.asarray(s), np.zeros(tail, dtype=np.asarray(s).dtype)])

@@ -1,8 +1,8 @@
 """The port's constants equal the JAX module's, bit for bit.
 
 swiftmp3_tpu_torch.ops.dsp rebuilds every table of the compat path from
-swiftmp3_tpu.tables in numpy float64, as swiftmp3_tpu.ops.dsp builds its jnp
-constants; the GPU forms (256-entry tables indexed directly) must hold the
+its own copy of the ISO tables in numpy float64, as swiftmp3_tpu.ops.dsp
+builds its jnp constants; the GPU forms (256-entry tables indexed directly) must hold the
 same values as the JAX forms (where-tree lookups, exact ldexp steps).
 """
 
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from swiftmp3_tpu.ops import dsp as jdsp
+from swiftmp3_tpu.ops import pallas_kernels as pk
 from swiftmp3_tpu.tables import band_table
 from swiftmp3_tpu_torch.ops import dsp as tdsp
 
@@ -23,6 +24,14 @@ _G = np.arange(256, dtype=np.int32)
 def _bits_equal(a, b) -> bool:
     a, b = np.asarray(a), np.asarray(b)
     return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def test_polyphase_window_and_matrix():
+    # K3's constants: the reversed window and the reversed, transposed matrix
+    assert _bits_equal(tdsp.WINDOW_REV, jdsp._WINDOW_REV)
+    assert _bits_equal(tdsp.WINDOW_REV.reshape(8, 64), pk._W8)
+    assert _bits_equal(tdsp.MATRIX_REV_T, jdsp._MATRIX_REV_T)
+    assert _bits_equal(tdsp.MATRIX_REV_T, pk._M2T)
 
 
 @pytest.mark.parametrize("d", range(5))
@@ -67,7 +76,8 @@ def test_region_bounds(sr):
 
 
 @pytest.mark.parametrize(
-    "name", ["poly_fold", "mdct_p", "mdct_c", "sign_flat", "inv_step", "t15_code"]
+    "name",
+    ["window_rev", "matrix_rev_t", "poly_fold", "mdct_p", "mdct_c", "sign_flat", "inv_step", "t15_code"],
 )
 def test_device_constants_keep_their_bits(name):
     t = tdsp.constant(name, torch.device("cpu"))

@@ -3,26 +3,37 @@ plain PyTorch versions, and the port's entry points on a CUDA device against
 the same entry points on the CPU.
 
 Every test here needs a CUDA card and skips without one (the kernels have no
-CPU mode). The file imports nothing of JAX, so it also runs where JAX is
-not installed:
+CPU mode). The file imports nothing of JAX and nothing of the JAX package, so
+it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
 
+import numpy as np
 import pytest
 import torch
 
-from swiftmp3_tpu.options import MP3EncoderOptions, Mode
 from swiftmp3_tpu_torch.encoder import new_session
 from swiftmp3_tpu_torch.ops import dsp, kernels
+from swiftmp3_tpu_torch.options import MP3EncoderOptions
 from swiftmp3_tpu_torch.parallel.batch import encode_batch
 
-from .fixture_lib import FIXTURES, fixture_path, make_signal
-from .torch_inputs import knife_edge_sweep_input, pack_input, sweep_input
+from .torch_inputs import (
+    COMPAT_FIXTURES,
+    fixture_path,
+    knife_edge_sweep_input,
+    make_signal,
+    pack_input,
+    sweep_input,
+)
 
 pytestmark = pytest.mark.cuda
 
 PACK_SHAPES = [(16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160), (2048, 1152, 894)]
+# (rows, T): the session chunk, 36T no multiple of the 64-position tile, a
+# batch chunk; the JAX package's K3 tolerance (tests/test_pallas.py)
+POLYPHASE_SHAPES = [(2, 8), (6, 3), (64, 32)]
+K3_TOLERANCE = 2e-5
 
 
 @pytest.fixture
@@ -77,20 +88,39 @@ def test_pack_kernel_truncates_at_cap(cuda_device):
     assert torch.equal(by, pby) and torch.equal(tot, ptot)
 
 
+@pytest.mark.parametrize("rows,T", POLYPHASE_SHAPES)
+def test_polyphase_kernel_matches_plain(cuda_device, rows, T):
+    rng = np.random.default_rng(rows * 100 + T)
+    hist = torch.from_numpy((rng.standard_normal((rows, 480)) * 0.2).astype(np.float32))
+    pcm = torch.from_numpy((rng.standard_normal((rows, T * 1152)) * 0.5).astype(np.float32))
+    hist, pcm = hist.to(cuda_device), pcm.to(cuda_device)
+    before = kernels.LAUNCHES["polyphase"]
+    S, x = kernels.polyphase_chunk(hist, pcm)
+    assert kernels.LAUNCHES["polyphase"] == before + 1
+    S_p, x_p = kernels.polyphase_chunk_plain(hist, pcm)
+    assert S.shape == S_p.shape == (rows, 36 * T, 32)
+    assert float((S - S_p).abs().max()) <= K3_TOLERANCE
+    assert torch.equal(x, x_p)
+    S_m, _ = dsp.polyphase_chunk_matmul(hist, pcm)
+    assert float((S - S_m).abs().max()) <= K3_TOLERANCE
+
+
 def test_session_on_the_card_matches_the_fixture(cuda_device):
-    name, kw, kind, seconds, seed = next(f for f in FIXTURES if f[0] == "joint_cbr192_48k_mix")
+    name, kw, kind, seconds, seed = next(
+        f for f in COMPAT_FIXTURES if f[0] == "joint_cbr192_48k_mix"
+    )
     o = MP3EncoderOptions(**kw)
     pcm = make_signal(kind, seconds, o.sample_rate, o.channels, seed)
-    s = new_session(o, cuda_device)
+    s = new_session(o)
     with open(fixture_path(name, "tpu"), "rb") as fh:
         assert s.encode(pcm) + s.flush() == fh.read()
 
 
 def test_batch_on_the_card_matches_cpu_sessions(cuda_device):
-    o = MP3EncoderOptions(mode=Mode.STEREO, reservoir_mode="aligned")
+    o = MP3EncoderOptions(mode="stereo", reservoir_mode="aligned")
     base = make_signal("mix", 0.5, 44100, 2, 31)
     streams = [base, base[: 2 * 1152 * 9 + 10], base[::-1].copy()]
-    got = encode_batch(o, streams, cuda_device, frames_per_step=8)
+    got = encode_batch(o, streams, frames_per_step=8)
     for pcm, data in zip(streams, got):
         s = new_session(o, "cpu")
         assert data == s.encode(pcm) + s.flush()

@@ -1,0 +1,94 @@
+"""The port's reference inputs and frozen streams equal what the reference
+produces (CPU).
+
+`chip_smoke.py` and `tools/torch_profile_step.py` import nothing of the JAX
+package, so their inputs come from numpy-only copies in `tests/torch_inputs.py`
+and their golden streams from files under `tests/fixtures/torch/`. Here:
+
+- the signal copies (`make_signal`, `corpus_stereo`) equal the originals
+  (`tests/fixture_lib.py`, `tests/test_ulp_telemetry.py`), array for array;
+- the 8 compat rows equal the compat rows of `fixture_lib.FIXTURES`;
+- each frozen stream is what the golden numpy backend
+  (`EncoderSession(options, backend="numpy")`) encodes from its input today,
+  byte for byte, so the files stay pinned to the reference.
+
+Regenerate the frozen streams with `python -m tests.test_torch_fixtures`.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
+import pytest
+
+from swiftmp3_tpu.encoder import EncoderSession
+from swiftmp3_tpu.options import MP3EncoderOptions
+
+from . import fixture_lib
+from . import torch_inputs as ti
+from .test_ulp_telemetry import _corpus_stereo
+
+GOLDEN_STEMS = ["main_stream0", "main_stream1"] + [
+    f"corpus_{k}" for k in ("tonal", "noise", "burst", "speech", "decorr", "panned")
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _golden_inputs() -> dict:
+    return ti.golden_streams()
+
+
+def _golden_encode(pcm: np.ndarray) -> bytes:
+    s = EncoderSession(MP3EncoderOptions(**ti.MAIN_OPTIONS), backend="numpy")
+    return s.encode(pcm) + s.flush()
+
+
+@pytest.mark.parametrize("row", fixture_lib.FIXTURES, ids=[f[0] for f in fixture_lib.FIXTURES])
+def test_make_signal_copy_equals_fixture_lib(row):
+    _, kw, kind, seconds, seed = row
+    o = MP3EncoderOptions(**kw)
+    want = fixture_lib.make_signal(kind, seconds, o.sample_rate, o.channels, seed)
+    got = ti.make_signal(kind, seconds, o.sample_rate, o.channels, seed)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_compat_rows_equal_fixture_lib():
+    ref = [f for f in fixture_lib.FIXTURES if not MP3EncoderOptions(**f[1]).spec_strict_entropy]
+    assert [r[0] for r in ti.COMPAT_FIXTURES] == [r[0] for r in ref]
+    for (name, kw, *rest), (_, ref_kw, *ref_rest) in zip(ti.COMPAT_FIXTURES, ref):
+        assert rest == ref_rest, name
+        assert MP3EncoderOptions(**kw) == MP3EncoderOptions(**ref_kw), name
+        assert os.path.exists(ti.fixture_path(name, "tpu"))
+        assert ti.fixture_path(name, "tpu") == fixture_lib.fixture_path(name, "tpu")
+
+
+def test_corpus_copy_equals_the_telemetry_corpus():
+    got, want = ti.corpus_stereo(), _corpus_stereo()
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+
+
+def test_golden_inputs_cover_the_frozen_files():
+    assert sorted(_golden_inputs()) == sorted(GOLDEN_STEMS)
+    main = _golden_inputs()["main_stream0"]
+    assert main.dtype == np.int16 and main.shape == (ti.T_MAIN * 2304,)
+    frozen = sorted(os.listdir(ti.TORCH_FIXTURE_DIR))
+    assert frozen == sorted(f"golden_{s}.mp3" for s in GOLDEN_STEMS)
+
+
+@pytest.mark.parametrize("stem", GOLDEN_STEMS)
+def test_frozen_golden_stream_is_the_golden_encoders(stem):
+    with open(ti.golden_path(stem), "rb") as fh:
+        assert fh.read() == _golden_encode(_golden_inputs()[stem])
+
+
+if __name__ == "__main__":
+    os.makedirs(ti.TORCH_FIXTURE_DIR, exist_ok=True)
+    for stem, pcm in _golden_inputs().items():
+        data = _golden_encode(pcm)
+        with open(ti.golden_path(stem), "wb") as fh:
+            fh.write(data)
+        print(f"wrote {ti.golden_path(stem)} ({len(data)} bytes)")

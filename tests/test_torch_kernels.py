@@ -2,9 +2,12 @@
 
 On the CPU the plain PyTorch versions of K1 (rate sweep) and K2 (pack) are
 held bit-exact against the JAX package's Pallas kernels run in interpret
-mode, as the JAX package's own tests run them. The CUDA kernels themselves
-run only on a card (tests/test_torch_cuda.py). A mocked launch shows that a
-CUDA tensor never reaches a plain version.
+mode, as the JAX package's own tests run them; K3's (the polyphase
+filterbank) within the JAX package's own K3 tolerance, 2e-5, against the
+stepwise filterbank and the Pallas kernel. The CUDA kernels themselves run
+only on a card (tests/test_torch_cuda.py). A mocked launch shows that a CUDA
+tensor never reaches a plain version, and a mocked nvcc that a failed build
+raises.
 """
 
 import jax
@@ -19,11 +22,13 @@ from swiftmp3_tpu.ops import pallas_kernels as pk
 from swiftmp3_tpu_torch.ops import dsp as tdsp
 from swiftmp3_tpu_torch.ops import kernels
 
-from .torch_inputs import knife_edge_sweep_input, pack_input, sweep_input
+from .torch_inputs import knife_edge_sweep_input, pack_input, polyphase_input, sweep_input
 
 torch.set_num_threads(1)
 
 PACK_SHAPES = [(16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160)]
+K3_TOLERANCE = 2e-5  # tests/test_pallas.py
+NO_LAUNCHES = {"rate_sweep": 0, "pack": 0, "polyphase": 0}
 
 
 # --- plain versions against the Pallas kernels (interpret mode) ---------------
@@ -104,6 +109,30 @@ def test_pack_plain_truncates_at_cap_like_xla():
     assert int(tot.min()) > 894 * 8
 
 
+def test_polyphase_plain_matches_stepwise_and_pallas():
+    hist, pcm = polyphase_input()
+    S_ref, x_ref = jdsp.polyphase_chunk(jnp.asarray(hist), jnp.asarray(pcm))
+    S_pal, x_pal = pk.polyphase_chunk_pallas(jnp.asarray(hist), jnp.asarray(pcm), interpret=True)
+    S, x = kernels.polyphase_chunk(torch.from_numpy(hist), torch.from_numpy(pcm))
+    assert S.shape == S_ref.shape == (3, 2, 288, 32)
+    assert np.abs(S.numpy() - np.asarray(S_ref)).max() <= K3_TOLERANCE
+    assert np.abs(S.numpy() - np.asarray(S_pal)).max() <= K3_TOLERANCE
+    assert np.array_equal(x.numpy(), np.asarray(x_ref))
+    assert np.array_equal(x.numpy(), np.asarray(x_pal))
+
+
+@pytest.mark.parametrize("T", [3, 5])
+def test_polyphase_plain_matches_stepwise_when_windows_are_no_multiple_of_96(T):
+    """36T = 108 or 180 windows: not a multiple of the Pallas tile (96),
+    which the Pallas kernel asserts; the plain version takes any T."""
+    hist, pcm = polyphase_input(B=2, ch=1, T=T, seed=T)
+    S_ref, x_ref = jdsp.polyphase_chunk(jnp.asarray(hist), jnp.asarray(pcm))
+    S, x = kernels.polyphase_chunk_plain(torch.from_numpy(hist), torch.from_numpy(pcm))
+    assert S.shape == (2, 1, 36 * T, 32)
+    assert np.abs(S.numpy() - np.asarray(S_ref)).max() <= K3_TOLERANCE
+    assert np.array_equal(x.numpy(), np.asarray(x_ref))
+
+
 # --- dispatch: a CUDA tensor never reaches a plain version ---------------------
 
 
@@ -121,7 +150,8 @@ def test_cuda_tensors_launch_the_kernel_never_the_plain_version(monkeypatch):
     monkeypatch.setattr(kernels, "_launch", fake_launch)
     monkeypatch.setattr(kernels, "rate_sweep_plain", no_plain)
     monkeypatch.setattr(kernels, "pack_plain", no_plain)
-    monkeypatch.setattr(kernels, "LAUNCHES", {"rate_sweep": 0, "pack": 0})
+    monkeypatch.setattr(kernels, "polyphase_chunk_plain", no_plain)
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(NO_LAUNCHES))
 
     mag, g0 = sweep_input(9)
     bits, bv = kernels.rate_sweep(torch.from_numpy(mag), torch.from_numpy(g0))
@@ -129,17 +159,23 @@ def test_cuda_tensors_launch_the_kernel_never_the_plain_version(monkeypatch):
     ch, nb = pack_input(3, 576, 894)
     by, tot = kernels.pack(torch.from_numpy(ch), torch.from_numpy(nb), 894)
     assert by.shape == (3, 894) and tot.shape == (3,)
-    assert launched == ["rate_sweep", "pack"]
-    assert kernels.LAUNCHES == {"rate_sweep": 1, "pack": 1}
+    hist, pcm = polyphase_input(B=2, ch=2, T=3)
+    S, x = kernels.polyphase_chunk(torch.from_numpy(hist), torch.from_numpy(pcm))
+    assert S.shape == (2, 2, 108, 32) and x.shape == (2, 2, 480 + 3 * 1152)
+    assert launched == ["rate_sweep", "pack", "polyphase"]
+    assert kernels.LAUNCHES == {"rate_sweep": 1, "pack": 1, "polyphase": 1}
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing(monkeypatch):
-    monkeypatch.setattr(kernels, "LAUNCHES", {"rate_sweep": 0, "pack": 0})
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(NO_LAUNCHES))
     mag, g0 = sweep_input(5)
     kernels.rate_sweep(torch.from_numpy(mag), torch.from_numpy(g0))
     ch, nb = pack_input(2, 576, 894)
     kernels.pack(torch.from_numpy(ch), torch.from_numpy(nb), 894)
-    assert kernels.LAUNCHES == {"rate_sweep": 0, "pack": 0}
+    hist, pcm = polyphase_input(B=1, ch=2, T=2)
+    kernels.polyphase_chunk(torch.from_numpy(hist), torch.from_numpy(pcm))
+    kernels.polyphase_subbands(torch.from_numpy(hist), torch.from_numpy(pcm))
+    assert kernels.LAUNCHES == NO_LAUNCHES
 
 
 @pytest.mark.parametrize(
@@ -161,7 +197,47 @@ def test_cuda_wrapper_rejects_bad_inputs(monkeypatch, kind):
         kernels.rate_sweep(mag_t, g_t)
 
 
+@pytest.mark.parametrize("kind", ["dtype", "hist_shape", "whole_frames", "contiguity"])
+def test_cuda_polyphase_wrapper_rejects_bad_inputs(monkeypatch, kind):
+    monkeypatch.setattr(kernels, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(kernels, "_require_cuda", lambda *t: None)
+    monkeypatch.setattr(kernels, "_launch", lambda *a: pytest.fail("launched"))
+    hist, pcm = polyphase_input(B=2, ch=1, T=2)
+    hist_t, pcm_t = torch.from_numpy(hist), torch.from_numpy(pcm)
+    if kind == "dtype":
+        pcm_t = pcm_t.double()
+    elif kind == "hist_shape":
+        hist_t = hist_t[..., :479]
+    elif kind == "whole_frames":
+        pcm_t = pcm_t[..., :1000].contiguous()
+    else:
+        pcm_t = torch.from_numpy(np.asfortranarray(pcm))
+    with pytest.raises((TypeError, ValueError)):
+        kernels.polyphase_chunk(hist_t, pcm_t)
+
+
 def test_cpu_and_cuda_inputs_do_not_mix():
     mag, g0 = sweep_input(4)
     with pytest.raises(ValueError):
         kernels._require_cuda(torch.from_numpy(mag), torch.from_numpy(g0))
+
+
+@pytest.mark.parametrize("how", ["missing", "failing"])
+def test_failed_kernel_build_raises(monkeypatch, tmp_path, how):
+    """No nvcc, or an nvcc that fails, raises with its output; nothing is
+    loaded and no plain version stands in."""
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(kernels, "_libs", {})
+    if how == "missing":
+        monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+        monkeypatch.setenv("PATH", str(tmp_path))
+        match = "nvcc not found"
+    else:
+        fake = tmp_path / "nvcc"
+        fake.write_text("#!/bin/sh\necho 'fake nvcc: error'\nexit 3\n")
+        fake.chmod(0o755)
+        monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+        match = "nvcc exit 3"
+    with pytest.raises(RuntimeError, match=match):
+        kernels.build_kernels()
+    assert kernels._libs == {}

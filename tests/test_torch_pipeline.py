@@ -5,9 +5,14 @@ JAX package (CPU).
   fetch_outputs field exact, the carry within float tolerance;
 - the 8 compat fixture rows byte-equal to the JAX backend's streams;
 - drip-feed, batch and checkpoint invariances; unsupported options raise;
-- importing the port loads no jax.
+- importing the port loads neither jax nor the JAX package.
+
+Each package builds its own MP3EncoderOptions from the same keyword
+arguments (channel modes named as strings).
 """
 
+import dataclasses
+import inspect
 import subprocess
 import sys
 
@@ -18,28 +23,29 @@ import torch
 
 from swiftmp3_tpu.encoder import EncoderSession
 from swiftmp3_tpu.models import pipeline as jpipe
-from swiftmp3_tpu.options import MP3EncoderOptions, Mode
+from swiftmp3_tpu.options import MP3EncoderOptions as JaxOptions
 from swiftmp3_tpu_torch.encoder import new_session
 from swiftmp3_tpu_torch.models import pipeline as tpipe
+from swiftmp3_tpu_torch.options import MP3EncoderOptions
+from swiftmp3_tpu_torch.parallel import batch as tbatch
 from swiftmp3_tpu_torch.parallel.batch import BatchEncoder, encode_batch
 
-from .fixture_lib import FIXTURES, fixture_path, make_signal
 from .test_ulp_telemetry import _corpus_stereo
+from .torch_inputs import COMPAT_FIXTURES, fixture_path, make_signal
 from .util import parse_frames
 
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
-COMPAT_FIXTURES = [f for f in FIXTURES if not MP3EncoderOptions(**f[1]).spec_strict_entropy]
 
 CHUNK_OPTIONS = {
-    "stereo": dict(mode=Mode.STEREO),
-    "joint": dict(mode=Mode.JOINT_STEREO),
-    "mono_vbr": dict(mode=Mode.MONO, vbr=True, quality=3),
+    "stereo": dict(mode="stereo"),
+    "joint": dict(mode="joint_stereo"),
+    "mono_vbr": dict(mode="mono", vbr=True, quality=3),
     "aligned_crc_48k": dict(
-        mode=Mode.STEREO, reservoir_mode="aligned", crc_protected=True, sample_rate=48000
+        mode="stereo", reservoir_mode="aligned", crc_protected=True, sample_rate=48000
     ),
-    "iso_quant_32k": dict(mode=Mode.JOINT_STEREO, iso_quantization=True, sample_rate=32000),
+    "iso_quant_32k": dict(mode="joint_stereo", iso_quantization=True, sample_rate=32000),
 }
 
 
@@ -56,6 +62,7 @@ def _chunk_input(options, B, T, seed):
 @pytest.mark.parametrize("name", sorted(CHUNK_OPTIONS))
 def test_chunk_program_matches_jax(name):
     o = MP3EncoderOptions(**CHUNK_OPTIONS[name])
+    jo_opts = JaxOptions(**CHUNK_OPTIONS[name])
     B, T = 2, 4
     final = np.zeros((B, T), bool)
     final[1, 2] = True
@@ -65,14 +72,14 @@ def test_chunk_program_matches_jax(name):
         (_chunk_input(o, B, T, 0), final, valid),
         (_chunk_input(o, B, T, 1), np.zeros((B, T), bool), np.ones((B, T), bool)),
     ]
-    jrun = jax.jit(jpipe.make_chunk_fn(o))
+    jrun = jax.jit(jpipe.make_chunk_fn(jo_opts))
     trun = tpipe.make_chunk_fn(o)
-    jc = jpipe.init_carry(B, o)
+    jc = jpipe.init_carry(B, jo_opts)
     tc = tpipe.init_carry(B, o, CPU)
     for pcm, fin, val in chunks:
         jc, jo = jrun(jc, pcm, fin, val)
         tc, to = trun(tc, torch.from_numpy(pcm), torch.from_numpy(fin), torch.from_numpy(val))
-        want = jpipe.fetch_outputs(jo, o)
+        want = jpipe.fetch_outputs(jo, jo_opts)
         got = tpipe.fetch_outputs(to, o)
         assert sorted(got) == sorted(want)
         for k in want:
@@ -92,9 +99,11 @@ def test_host_contract_matches_jax():
     """main_data_cap, fetch_outputs and frame_results_from_outputs read one
     packed output exactly as the JAX functions do."""
     for _, kw, *_ in COMPAT_FIXTURES:
-        o = MP3EncoderOptions(**kw)
-        assert tpipe.main_data_cap(o) == jpipe.main_data_cap(o)
-    o = MP3EncoderOptions(mode=Mode.JOINT_STEREO)
+        assert tpipe.main_data_cap(MP3EncoderOptions(**kw)) == jpipe.main_data_cap(
+            JaxOptions(**kw)
+        )
+    o = MP3EncoderOptions(mode="joint_stereo")
+    jo_opts = JaxOptions(mode="joint_stereo")
     B, T = 2, 3
     pcm = _chunk_input(o, B, T, 5)
     _, outs = tpipe.make_chunk_fn(o)(
@@ -103,12 +112,15 @@ def test_host_contract_matches_jax():
     )
     packed = outs["packed"].numpy()
     got = tpipe.fetch_outputs(outs, o)
-    want = jpipe.fetch_outputs({"packed": packed}, o)
+    want = jpipe.fetch_outputs({"packed": packed}, jo_opts)
     for b in range(B):
         for t in range(T):
             fr_t = tpipe.frame_results_from_outputs(got, o, t, b)
-            fr_j = jpipe.frame_results_from_outputs(want, o, t, b)
-            assert fr_t.granules == fr_j.granules
+            fr_j = jpipe.frame_results_from_outputs(want, jo_opts, t, b)
+            # GranuleInfo is each package's own dataclass: compare field by field
+            assert [[dataclasses.astuple(g) for g in gr] for gr in fr_t.granules] == [
+                [dataclasses.astuple(g) for g in gr] for gr in fr_j.granules
+            ]
             assert fr_t.main_data == fr_j.main_data
             for f in ("bitrate_index", "padding", "main_data_begin", "slot_size",
                       "scfsi", "mode_ext"):
@@ -131,12 +143,13 @@ def test_compat_flip_rate_vs_golden_on_the_telemetry_corpus():
     """The JAX backend's compat ceiling on the tests/test_ulp_telemetry
     corpus (2 divergent frames; measured 0/72 there) holds for the port;
     structure is equal everywhere."""
-    o = MP3EncoderOptions(mode=Mode.STEREO, bitrate_kbps=128, sample_rate=44100)
+    kw = dict(mode="stereo", bitrate_kbps=128, sample_rate=44100)
+    o = MP3EncoderOptions(**kw)
     bad = total = 0
     for pcm in _corpus_stereo().values():
         s = new_session(o, CPU)
         got = s.encode(pcm) + s.flush()
-        g = EncoderSession(o, backend="numpy")
+        g = EncoderSession(JaxOptions(**kw), backend="numpy")
         ref = g.encode(pcm) + g.flush()
         fg, fr = parse_frames(got), parse_frames(ref)
         assert [f.size for f in fg] == [f.size for f in fr]
@@ -149,7 +162,7 @@ def test_compat_flip_rate_vs_golden_on_the_telemetry_corpus():
 
 
 def test_drip_feed_matches_whole_buffer():
-    o = MP3EncoderOptions(mode=Mode.JOINT_STEREO)
+    o = MP3EncoderOptions(mode="joint_stereo")
     pcm = make_signal("mix", 0.5, 44100, 2, 21)
     s = new_session(o, CPU)
     whole = s.encode(pcm) + s.flush()
@@ -163,7 +176,7 @@ def test_drip_feed_matches_whole_buffer():
 
 
 def test_batch_matches_sessions():
-    o = MP3EncoderOptions(mode=Mode.STEREO, vbr=True, quality=4)
+    o = MP3EncoderOptions(mode="stereo", vbr=True, quality=4)
     base = make_signal("noise", 0.6, 44100, 2, 22)
     streams = [
         base,
@@ -179,7 +192,7 @@ def test_batch_matches_sessions():
 
 
 def test_batch_encoder_step_drain_flush():
-    o = MP3EncoderOptions(mode=Mode.MONO)
+    o = MP3EncoderOptions(mode="mono")
     B, T = 3, 4
     enc = BatchEncoder(o, B, T, CPU)
     pcm = _chunk_input(o, B, T, 9)
@@ -203,23 +216,23 @@ def _split_encode(first, second, pcm, cut):
 
 
 def test_checkpoint_jax_to_port_and_back():
-    o = MP3EncoderOptions(mode=Mode.JOINT_STEREO)
+    o = MP3EncoderOptions(mode="joint_stereo")
+    jo_opts = JaxOptions(mode="joint_stereo")
     pcm = make_signal("noise", 0.5, 44100, 2, 23)
     cut = 2 * 1152 * 9 + 500
 
-    ref = EncoderSession(o, backend="tpu")
+    ref = EncoderSession(jo_opts, backend="tpu")
     ref.encode(pcm[:cut])
     tail_ref = ref.encode(pcm[cut:]) + ref.flush()
 
-    tail = _split_encode(EncoderSession(o, backend="tpu"), new_session(o, CPU), pcm, cut)
+    tail = _split_encode(EncoderSession(jo_opts, backend="tpu"), new_session(o, CPU), pcm, cut)
     assert tail == tail_ref
-    tail = _split_encode(new_session(o, CPU), EncoderSession(o, backend="tpu"), pcm, cut)
+    tail = _split_encode(new_session(o, CPU), EncoderSession(jo_opts, backend="tpu"), pcm, cut)
     assert tail == tail_ref
 
 
 def test_carry_from_jax_conversions():
-    o = MP3EncoderOptions(mode=Mode.STEREO)
-    state = {k: np.asarray(v) for k, v in jpipe.init_carry(2, o).items()}
+    state = {k: np.asarray(v) for k, v in jpipe.init_carry(2, JaxOptions(mode="stereo")).items()}
     state["stream_len"] = np.array([5, 7], np.int32)
     carry = tpipe.carry_from_jax(state, CPU)
     back = tpipe.carry_to_jax(carry)
@@ -258,24 +271,59 @@ def test_unsupported_options_raise(kw):
         BatchEncoder(o, 2, 4, CPU)
 
 
+def test_entry_points_default_to_the_card(monkeypatch):
+    """new_session, TorchBackend, BatchEncoder and encode_batch run on
+    "cuda" unless told otherwise; with no card they raise and do not run on
+    the CPU."""
+    defaults = [
+        inspect.signature(new_session).parameters["device"].default,
+        inspect.signature(tpipe.TorchBackend).parameters["device"].default,
+        inspect.signature(BatchEncoder).parameters["device"].default,
+        inspect.signature(encode_batch).parameters["device"].default,
+    ]
+    assert defaults == ["cuda"] * 4
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_cpu_run(*args, **kwargs):
+        raise AssertionError("a default call ran the chunk program")
+
+    monkeypatch.setattr(tpipe, "init_carry", no_cpu_run)
+    monkeypatch.setattr(tbatch, "init_carry", no_cpu_run)
+    o = MP3EncoderOptions(mode="stereo")
+    pcm = make_signal("sine", 0.1, 44100, 2, 0)
+    for call in (
+        lambda: new_session(o),
+        lambda: tpipe.TorchBackend(o),
+        lambda: BatchEncoder(o, 2, 4),
+        lambda: encode_batch(o, [pcm]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
+
+
 def test_hq_preset_raises():
     with pytest.raises(NotImplementedError, match="item 8"):
         tpipe.make_chunk_fn(MP3EncoderOptions.hq())
 
 
 def test_import_loads_no_jax():
+    """Importing every module of the port loads neither jax nor any module
+    of the JAX package (both are blocked; neither may already be loaded)."""
     code = (
-        "import sys, importlib.abc\n"
+        "import sys, importlib, importlib.abc, pkgutil\n"
+        "BLOCKED = ('jax', 'jaxlib', 'swiftmp3_tpu')\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name == 'jax' or name.startswith(('jax.', 'jaxlib')):\n"
-        "            raise ImportError('jax import blocked: ' + name)\n"
-        "before = {m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')}\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError('import blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
-        "import swiftmp3_tpu_torch, swiftmp3_tpu_torch.encoder\n"
-        "import swiftmp3_tpu_torch.parallel.batch, swiftmp3_tpu_torch.ops.kernels\n"
-        "after = {m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')}\n"
-        "assert after == before, sorted(after - before)\n"
+        "import swiftmp3_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(swiftmp3_tpu_torch.__path__, 'swiftmp3_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'swiftmp3_tpu_torch.native.lib' in names and len(names) > 25, names\n"
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
+        "assert not loaded, loaded\n"
         "print('ok')\n"
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)

@@ -1,8 +1,30 @@
-"""Inputs shared by the port's kernel tests (numpy only, made from seeds)."""
+"""Inputs shared by the port's tests and `chip_smoke.py` (numpy only, made
+from seeds).
+
+Besides the kernel inputs, this module holds numpy-only copies of the
+reference tests' signal makers and option rows, so that code which must not
+import the JAX package (`chip_smoke.py`, `tools/torch_profile_step.py`)
+builds the same inputs: `make_signal` and the 8 compat rows of
+`tests/fixture_lib.py`, `corpus_stereo` (`tests/test_ulp_telemetry.py`), and
+the bench audio of the main path. `tests/test_torch_fixtures.py` holds each
+copy equal to its original. Option keyword arguments name the channel mode
+as a string, so each package's `MP3EncoderOptions(**kw)` builds from the
+same row.
+"""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+TORCH_FIXTURE_DIR = os.path.join(FIXTURE_DIR, "torch")
+
+# The main path's configuration and step shape (chip_smoke.py phase 4):
+# default options, 128 kbps CBR stereo 44.1 kHz, 256 streams x 128 frames.
+MAIN_OPTIONS = dict(mode="stereo", bitrate_kbps=128, sample_rate=44100)
+B_MAIN, T_MAIN = 256, 128
 
 
 def sweep_input(n: int = 37, seed: int = 7):
@@ -27,6 +49,15 @@ def pack_input(F: int, P: int, cap: int, seed: int = 7, overflow: bool = False):
         nb = np.where(rng.random((F, P)) < scale, nb, 0)
     ch = (rng.integers(0, 1 << 15, size=(F, P)) & ((1 << nb) - 1)).astype(np.int32)
     return ch, nb
+
+
+def polyphase_input(B: int = 3, ch: int = 2, T: int = 8, seed: int = 0):
+    """The tests/test_pallas.py filterbank input: (hist [B, ch, 480],
+    pcm [B, ch, T*1152]) float32."""
+    rng = np.random.default_rng(seed)
+    hist = (rng.standard_normal((B, ch, 480)) * 0.2).astype(np.float32)
+    pcm = (rng.standard_normal((B, ch, T * 1152)) * 0.5).astype(np.float32)
+    return hist, pcm
 
 
 def fma_knife_edges(inv_table: np.ndarray) -> dict[int, np.ndarray]:
@@ -71,3 +102,186 @@ def knife_edge_sweep_input(inv_table: np.ndarray, seed: int = 3):
         pos = rng.choice(576, size=min(len(vals), 576), replace=False)
         mag[i, pos] = np.asarray(vals[: len(pos)], dtype=np.float32)
     return mag, np.asarray(starts, dtype=np.int32)
+
+
+# --- copies of the reference tests' signals (numpy only) ----------------------
+
+
+def _sine(n: int, sr: int, freq: float, amp: float) -> np.ndarray:
+    t = np.arange(n, dtype=np.float32) / np.float32(sr)
+    return (amp * np.sin(2 * np.pi * freq * t)).astype(np.float32)
+
+
+def _noise(n: int, seed: int, amp: float) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n).astype(np.float32)
+    for i in range(1, 5):  # correlate: reservoir-stressing but audio-like
+        x[i:] += x[:-i] / (i + 1)
+    return (amp * x / np.abs(x).max()).astype(np.float32)
+
+
+def _burst(n: int, sr: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float32) / np.float32(sr)
+    x = (0.35 * np.sin(2 * np.pi * 523.25 * t)).astype(np.float32)
+    env = np.zeros(n, dtype=np.float32)
+    p = 700
+    while p < n - 1200:
+        env[p : p + 500] = 1.0
+        p += int(rng.integers(1900, 2700))
+    return (x * (0.2 + 0.8 * env)).astype(np.float32)
+
+
+def make_signal(kind: str, seconds: float, sr: int, channels: int, seed: int) -> np.ndarray:
+    """Copy of tests/fixture_lib.make_signal."""
+    n = int(seconds * sr)
+    if kind == "sine":
+        mono = _sine(n, sr, 440.0, 0.5)
+    elif kind == "noise":
+        mono = _noise(n, seed, 0.35)
+    elif kind == "mix":
+        mono = _sine(n, sr, 523.25, 0.3) + _noise(n, seed, 0.2)
+    elif kind == "burst":
+        mono = _burst(n, sr, seed)
+    else:
+        raise ValueError(kind)
+    if channels == 1:
+        return mono
+    # slightly decorrelated channels so the M/S decision is exercised
+    right = np.roll(mono, 7) * np.float32(0.9)
+    return np.stack([mono, right], axis=-1).reshape(-1)
+
+
+# The 8 compat rows of tests/fixture_lib.FIXTURES:
+# (name, options kwargs, signal kind, seconds, seed).
+COMPAT_FIXTURES = [
+    ("mono_cbr128_44k_sine", dict(mode="mono"), "sine", 0.40, 1),
+    ("stereo_cbr128_44k_noise", dict(mode="stereo"), "noise", 0.40, 2),
+    (
+        "joint_cbr192_48k_mix",
+        dict(mode="joint_stereo", bitrate_kbps=192, sample_rate=48000),
+        "mix",
+        0.37,
+        3,
+    ),
+    ("mono_vbr_q3_44k_noise", dict(mode="mono", vbr=True, quality=3), "noise", 0.40, 4),
+    ("stereo_crc_cbr128_44k_sine", dict(mode="stereo", crc_protected=True), "sine", 0.40, 5),
+    (
+        "mono_cbr64_32k_noise",
+        dict(mode="mono", bitrate_kbps=64, sample_rate=32000),
+        "noise",
+        0.45,
+        6,
+    ),
+    (
+        "stereo_aligned_cbr128_44k_mix",
+        dict(mode="stereo", reservoir_mode="aligned"),
+        "mix",
+        0.40,
+        7,
+    ),
+    (
+        "joint_vbr_q7_crc_aligned_48k_noise",
+        dict(
+            mode="joint_stereo",
+            vbr=True,
+            quality=7,
+            crc_protected=True,
+            sample_rate=48000,
+            reservoir_mode="aligned",
+        ),
+        "noise",
+        0.37,
+        8,
+    ),
+]
+
+
+def fixture_path(name: str, backend: str) -> str:
+    """A committed reference stream, tests/fixtures/<name>.<backend>.mp3."""
+    return os.path.join(FIXTURE_DIR, f"{name}.{backend}.mp3")
+
+
+def corpus_stereo() -> dict:
+    """Copy of tests/test_ulp_telemetry._corpus_stereo: the fixed mixed
+    corpus (6 classes x 12 frames), interleaved stereo float32."""
+    sr, n = 44100, 1152 * 12
+    rng = np.random.default_rng(20260820)
+    t = np.arange(n) / sr
+    out = {}
+
+    tone = 0.4 * np.sin(2 * np.pi * 441.0 * t) + 0.15 * np.sin(2 * np.pi * 1320.0 * t)
+    out["tonal"] = (tone, 0.8 * tone)
+
+    ar = rng.standard_normal(n + 8).astype(np.float64)
+    for i in range(1, 8):
+        ar[i:] += ar[:-i] / (i + 1)
+    ar = 0.25 * ar[:n] / np.abs(ar[:n]).max()
+    out["noise"] = (ar, ar + 0.01 * rng.standard_normal(n))
+
+    burst = 0.3 * np.sin(2 * np.pi * 600.0 * t)
+    for k in range(1152 * 2, n, 1152 * 3):
+        burst[k : k + 96] += rng.standard_normal(96) * 0.6
+    out["burst"] = (burst, burst * 0.9)
+
+    exc = np.zeros(n)
+    exc[:: int(sr / 120)] = 1.0
+    exc += 0.3 * rng.standard_normal(n)
+    sp = np.copy(exc)
+    for i in range(1, 10):
+        sp[i:] += sp[:-i] * (0.75 / i)
+    env = 0.5 * (1 + np.sin(2 * np.pi * 3.0 * t))
+    sp = 0.3 * env * sp / np.abs(sp).max()
+    out["speech"] = (sp, sp)
+
+    out["decorr"] = (0.2 * rng.standard_normal(n), 0.2 * rng.standard_normal(n))
+
+    pan = 0.35 * np.sin(2 * np.pi * 523.25 * t) + 0.1 * np.sin(2 * np.pi * 2093.0 * t)
+    out["panned"] = (pan, 0.25 * pan)
+    return {
+        k: np.stack([np.asarray(l, np.float32), np.asarray(r, np.float32)], axis=-1).reshape(-1)
+        for k, (l, r) in out.items()
+    }
+
+
+def bench_audio(rng, B: int, T: int, channels: int, sample_rate: int) -> np.ndarray:
+    """Speech/music-like correlated audio, int16 interleaved [B, T, 1152*ch];
+    unique content per call (the generator of bench.py)."""
+    t_ax = np.arange(T * 1152) / sample_rate
+    base = sum(
+        a * np.sin(2 * np.pi * f * t_ax)
+        for a, f in [(0.35, 220.0), (0.2, 467.0), (0.1, 1313.0)]
+    )
+    ar = rng.standard_normal((B, T * 1152)).astype(np.float32)
+    for i in range(1, 8):
+        ar[:, i:] += ar[:, :-i] / (i + 1)
+    ar *= 0.05 / np.abs(ar).max()
+    sig = (base[None, :] * rng.uniform(0.5, 1.0, (B, 1)) + ar).astype(np.float32)
+    mono = (np.clip(sig, -0.99, 0.99) * 32767).astype(np.int16)
+    return np.repeat(mono[..., None], channels, axis=-1).reshape(B, T, 1152 * channels)
+
+
+def main_path_streams() -> list[np.ndarray]:
+    """The 2 main-path streams held against the golden encoder: streams 0
+    and 1 of the first step's audio of chip_smoke.py (bench_audio from seed
+    0 at B_MAIN x T_MAIN), interleaved int16."""
+    audio = bench_audio(np.random.default_rng(0), B_MAIN, T_MAIN, 2, 44100)
+    return [audio[b].reshape(-1) for b in range(2)]
+
+
+def golden_streams(main_audio: np.ndarray = None) -> dict:
+    """Every input whose golden-encoder stream is frozen under
+    tests/fixtures/torch/ (options MAIN_OPTIONS): {file stem: PCM}.
+    main_audio: the first step's bench audio [B, T, 2304], if the caller
+    already made it (else it is made here)."""
+    if main_audio is None:
+        streams = main_path_streams()
+    else:
+        streams = [main_audio[b].reshape(-1) for b in range(2)]
+    out = {f"main_stream{b}": pcm for b, pcm in enumerate(streams)}
+    out.update({f"corpus_{k}": pcm for k, pcm in corpus_stereo().items()})
+    return out
+
+
+def golden_path(stem: str) -> str:
+    return os.path.join(TORCH_FIXTURE_DIR, f"golden_{stem}.mp3")

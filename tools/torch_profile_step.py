@@ -11,10 +11,15 @@ then:
      boundary: phase 1 up to and including the rate sweep, the integer loop
      over T, and phase 3 (finalize, pack, output assembly, carry-out);
   2. torch.profiler over one more step: device time by kernel, the number
-     of kernel launches, and the device's busy share of the step.
+     of kernel launches, and the device's busy share of the step;
+  3. the filterbank stage (the counterpart of tools/profile_step.py's): on
+     that step's own chunk and history, CUDA-event times of the plain
+     stepwise filterbank, the production folded matmul, the K3 kernel
+     (`ops/csrc/polyphase.cu`) and the one PyTorch call that computes the
+     same subband samples, conv1d (a yardstick the port never calls).
 
 Prints the card's name and power limit beside the numbers. Needs a CUDA
-card; imports nothing of JAX.
+card; imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -24,34 +29,92 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+import torch
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main() -> int:
-    import numpy as np
-    import torch
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of fn() in ms over reps runs (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
+
+def filterbank_input(pcm_i16: np.ndarray, device) -> torch.Tensor:
+    """The main path's filterbank input for one step of stereo audio: int16
+    [B, T, 2304] ingested and split into [B, 2, T*1152] float32 channels
+    (pipeline.make_chunk_fn, stereo mode)."""
+    from swiftmp3_tpu_torch.ops import dsp
+
+    B = pcm_i16.shape[0]
+    pcm = dsp.ingest(torch.from_numpy(pcm_i16).to(device)).reshape(B, -1)
+    return torch.stack([pcm[:, 0::2], pcm[:, 1::2]], dim=1).contiguous()
+
+
+def conv1d_weight(device) -> torch.Tensor:
+    """C.T as [32, 1, 512]: C[u, k] = Wrev[u] * MrevT[u % 64, k], so
+    conv1d(x [N, 1, L], C.T, stride=32) is S transposed."""
+    from swiftmp3_tpu_torch.ops import dsp
+
+    C = dsp.WINDOW_REV.astype(np.float64)[:, None] * dsp.MATRIX_REV_T.astype(
+        np.float64
+    )[np.arange(512) % 64]
+    return torch.from_numpy(np.ascontiguousarray(C.T, dtype=np.float32)[:, None, :]).to(device)
+
+
+def filterbank_stage(hist: torch.Tensor, chunk: torch.Tensor) -> dict:
+    """Time the filterbank four ways on one chunk (hist [..., 480], chunk
+    [..., T*1152] on the card): the plain stepwise version (`plain_ms`,
+    with its concatenation), the production folded matmul (`matmul_ms`,
+    with its concatenation), the K3 kernel alone (`ms`: S only, x is a
+    concatenation outside it) and conv1d on the concatenated signal
+    (`library_ms`). Launches K3 22 times."""
+    import torch.nn.functional as F
+
+    from swiftmp3_tpu_torch.ops import dsp, kernels
+
+    x = torch.cat([hist, chunk], dim=-1).reshape(-1, 1, hist.shape[-1] + chunk.shape[-1])
+    weight = conv1d_weight(chunk.device)
+    return {
+        "plain_ms": cuda_ms(lambda: kernels.polyphase_chunk_plain(hist, chunk), reps=5, warmup=1),
+        "matmul_ms": cuda_ms(lambda: dsp.polyphase_chunk_matmul(hist, chunk), reps=20),
+        "ms": cuda_ms(lambda: kernels.polyphase_subbands(hist, chunk), reps=20),
+        "library_ms": cuda_ms(lambda: F.conv1d(x, weight, stride=32), reps=20),
+    }
+
+
+def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
 
-    from chip_smoke import B_MAIN as B
-    from chip_smoke import T_MAIN as T
-    from chip_smoke import _bench_audio
-    from swiftmp3_tpu.options import MP3EncoderOptions
     from swiftmp3_tpu_torch.ops import dsp
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
     from swiftmp3_tpu_torch.parallel.batch import BatchEncoder
+    from tests.torch_inputs import B_MAIN as B
+    from tests.torch_inputs import T_MAIN as T
+    from tests.torch_inputs import MAIN_OPTIONS, bench_audio
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    opts = MP3EncoderOptions()
+    opts = MP3EncoderOptions(**MAIN_OPTIONS)
     rng = np.random.default_rng(0)
-    audio = [_bench_audio(rng, B, T, 2, opts.sample_rate) for _ in range(4)]
+    audio = [bench_audio(rng, B, T, 2, opts.sample_rate) for _ in range(4)]
     final = np.zeros((B, T), bool)
     valid = np.ones((B, T), bool)
-    enc = BatchEncoder(opts, B, T, "cuda")
+    enc = BatchEncoder(opts, B, T)
     try:
         for k in range(2):
             enc.drain(enc.step(audio[k], final, valid), valid)
@@ -91,6 +154,7 @@ def main() -> int:
               f"step {(t1 - t0) * 1e3:.2f} ms (synchronised)", flush=True)
 
         # 2. profiler over one unsynchronised step
+        hist = enc.carry["fb_hist"].clone()  # the profiled step's history
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
@@ -111,6 +175,12 @@ def main() -> int:
           f"events, device busy {busy_us / 1e3:.2f} ms ({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of "
           f"the step), {card}", flush=True)
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=25))
+
+    # 3. the filterbank stage on the profiled step's chunk
+    fb = filterbank_stage(hist, filterbank_input(audio[3], "cuda"))
+    print(f"[filterbank] {B * 2} rows x T={T} ({36 * T} windows), {card}: "
+          f"plain stepwise {fb['plain_ms']:.4f} ms, folded matmul {fb['matmul_ms']:.4f} ms, "
+          f"K3 kernel {fb['ms']:.4f} ms, conv1d {fb['library_ms']:.4f} ms", flush=True)
     print(card)
     return 0
 
