@@ -11,14 +11,14 @@ reference streams are committed files). Phases:
   1. card: name and power limit, kernel build time;
   2. K1 rate sweep: kernel vs plain version, bit-exact, both quantizer laws,
      on a 37-granule input, on granules at FMA knife edges and on the main
-     path's 131 072 granules;
+     path's 131 072 granules; its time there as a share of its bound;
   3. K2 pack: kernel vs plain version, bit-exact, at the main path's shape and
      the reference tests' shapes, and against the port's host Huffman packer;
   3b. K3 polyphase filterbank: kernel vs plain version and vs the folded
      matmul within 2e-5 (x identical) at the main path's shape (512 rows,
      T = 128) and at session shapes (T = 8, T = 3); then the path that runs
      K3, the filterbank stage of tools/torch_profile_step.py, with launch
-     counts read around it;
+     counts read around it, and K3's time as a share of its bound;
   4. the main path: BatchEncoder at 256 streams x 128 frames, 128 kbps CBR
      stereo 44.1 kHz, 3 steps of unique int16 audio rendered to bytes, with
      launch counts read around it; every stream's frame walk is checked;
@@ -196,6 +196,7 @@ def main() -> int:
     print(f"[K1] rate_sweep bit-exact, both laws, N=37, FMA knife edges and N={n_main}: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
           flush=True)
+    print(f"[K1] rate_sweep at {100 * bound_ms / ms:.1f}% of its bound, {card}", flush=True)
 
     # ---- 3. K2 pack vs its plain version and the host packer ------------------
     rp = np.random.default_rng(7)
@@ -274,6 +275,7 @@ def main() -> int:
           f"plain {fb['plain_ms']:.4f} ms, folded matmul {fb['matmul_ms']:.4f} ms, "
           f"conv1d {fb['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
           f"launches {k3_launches}", flush=True)
+    print(f"[K3] polyphase at {100 * bound_ms / fb['ms']:.1f}% of its bound, {card}", flush=True)
 
     # ---- 4. the main path -----------------------------------------------------
     enc = BatchEncoder(opts, B_MAIN, T_MAIN)

@@ -11,6 +11,13 @@ tensor takes the plain version; a CUDA tensor launches the kernel or raises
 raise). Each wrapper adds one to `LAUNCHES[name]` where it launches its
 kernel, and nowhere else.
 
+K1 and K3 are laid out for the H100's SM (csrc/rate_sweep.cu, csrc/polyphase.cu
+say how): K1 quantizes without a float-to-int conversion and prices a pair
+with one byte lookup in `sweep_cost_table`; K3 register-tiles its cosine
+product and walks `polyphase_plan`'s tiles with asynchronous staging. What
+the launches need beyond pointers (the cost table, the tiling, the dynamic
+shared-memory size) is computed here, where the CPU tests reach it.
+
 Build: `nvcc` (sm_90a) compiles each `csrc/*.cu` into a shared library with
 a plain C interface under `swiftmp3_tpu_torch/_build/` at the first CUDA
 call (or `build_kernels()`), all sources in parallel; the libraries are
@@ -20,6 +27,7 @@ loaded with ctypes. Nothing is built or imported at module import.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -47,12 +55,12 @@ EXTRA_NVCC_FLAGS = {
 
 _vp = ctypes.c_void_p
 _SIGNATURES = {
-    # (mag, gstart, inv_table, len_table, bits, bv, n, stream)
+    # (mag, gstart, inv_table, cost_table, bits, bv, n, stream)
     "rate_sweep": [_vp, _vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, _vp],
     # (chunks, nbits, out, total_bits, F, P, cap, stream)
     "pack": [_vp, _vp, _vp, _vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, _vp],
-    # (hist, pcm, wrev, mrev_t, S, n_rows, n_pcm, stream)
-    "polyphase": [_vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, ctypes.c_longlong, _vp],
+    # (hist, pcm, wrev, mrev_t, S, n_rows, n_pcm, tiles_per_block, smem_bytes, stream)
+    "polyphase": [_vp, _vp, _vp, _vp, _vp] + [ctypes.c_longlong] * 4 + [_vp],
 }
 
 _build_lock = threading.Lock()
@@ -164,6 +172,19 @@ def _sweep_tables(iso: bool, device: torch.device) -> tuple[torch.Tensor, torch.
     return inv_step_table(iso, device), constant("t15_len", device)
 
 
+@functools.lru_cache(maxsize=None)
+def sweep_cost_table(device: torch.device) -> torch.Tensor:
+    """The kernel's one lookup per pair: cost[16 qx + qy] = table-15 length
+    + (qx != 0) + (qy != 0), the pair's code and sign bits, uint8 [256]
+    (at most 15; made once per device)."""
+    from .dsp import T15_LEN
+
+    q = torch.arange(16)
+    signs = (q != 0)[:, None].to(torch.int32) + (q != 0)[None, :].to(torch.int32)
+    cost = torch.from_numpy(T15_LEN).to(torch.int32) + signs.reshape(256)
+    return cost.to(torch.uint8).to(device)
+
+
 def rate_sweep_plain(
     mag: torch.Tensor, gstart: torch.Tensor, iso: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -209,11 +230,12 @@ def rate_sweep(
     bv = torch.empty_like(bits)
     if n == 0:
         return bits, bv
-    inv_table, len_table = _sweep_tables(iso, mag.device)
+    from .dsp import inv_step_table
+
     _launch(
         "rate_sweep", mag.device,
-        mag.data_ptr(), gstart.data_ptr(), inv_table.data_ptr(),
-        len_table.data_ptr(), bits.data_ptr(), bv.data_ptr(), n,
+        mag.data_ptr(), gstart.data_ptr(), inv_step_table(iso, mag.device).data_ptr(),
+        sweep_cost_table(mag.device).data_ptr(), bits.data_ptr(), bv.data_ptr(), n,
     )
     LAUNCHES["rate_sweep"] += 1
     return bits, bv
@@ -281,12 +303,42 @@ def pack(
 # --- K3: the polyphase analysis filterbank --------------------------------------
 
 HIST = 480  # filterbank history samples carried between chunks
+# The kernel's tiling (csrc/polyphase.cu): window positions per tile, and the
+# dynamic shared memory of a block in bytes: the [64, 32] cosine matrix, a
+# tile's 32 * tile + 480 samples, and its partial sums in rows of 64 + 4.
+K3_TILE = 256
+K3_SMEM_BYTES = 4 * (64 * 32 + 32 * K3_TILE + HIST + K3_TILE * (64 + 4))
+K3_MAX_TILES_PER_BLOCK = 8
+K3_BLOCKS_TO_FILL = 4 * 2 * 132  # four rounds of the two blocks each of 132 SMs holds
+MAX_GRID_BLOCKS = 0x7FFFFFFF
 
 
 def _polyphase_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     from .dsp import constant
 
     return constant("window_rev", device), constant("matrix_rev_t", device)
+
+
+def polyphase_plan(n_rows: int, n_pcm: int) -> dict:
+    """The kernel's launch plan for n_rows rows of n_pcm samples. A block
+    walks `tiles_per_block` consecutive tiles of one row (the cosine matrix
+    is loaded once a block, and a tile's samples arrive while the tile
+    before it computes): as many as leave enough blocks to fill the card,
+    at most K3_MAX_TILES_PER_BLOCK, spread evenly over the row's blocks.
+    Raises ValueError when the grid would pass CUDA's limit."""
+    tiles = -(-(n_pcm // 32) // K3_TILE)
+    per_block = min(K3_MAX_TILES_PER_BLOCK, max(1, n_rows * tiles // K3_BLOCKS_TO_FILL))
+    blocks_per_row = -(-tiles // per_block)
+    per_block = -(-tiles // blocks_per_row)
+    blocks = n_rows * blocks_per_row
+    if blocks > MAX_GRID_BLOCKS:
+        raise ValueError(f"polyphase: {blocks} blocks pass the grid limit {MAX_GRID_BLOCKS}")
+    return {
+        "tiles": tiles,
+        "tiles_per_block": per_block,
+        "blocks": blocks,
+        "smem_bytes": K3_SMEM_BYTES,
+    }
 
 
 def polyphase_chunk_plain(
@@ -333,11 +385,12 @@ def polyphase_subbands(hist: torch.Tensor, pcm: torch.Tensor) -> torch.Tensor:
     S = torch.empty(lead + (n_pcm // 32, 32), dtype=torch.float32, device=hist.device)
     if n == 0 or n_pcm == 0:
         return S
+    plan = polyphase_plan(n, n_pcm)
     wrev, mrev_t = _polyphase_tables(hist.device)
     _launch(
         "polyphase", hist.device,
         hist.data_ptr(), pcm.data_ptr(), wrev.data_ptr(), mrev_t.data_ptr(),
-        S.data_ptr(), n, n_pcm,
+        S.data_ptr(), n, n_pcm, plan["tiles_per_block"], plan["smem_bytes"],
     )
     LAUNCHES["polyphase"] += 1
     return S

@@ -30,9 +30,11 @@ from .torch_inputs import (
 pytestmark = pytest.mark.cuda
 
 PACK_SHAPES = [(16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160), (2048, 1152, 894)]
-# (rows, T): the session chunk, 36T no multiple of the 64-position tile, a
-# batch chunk; the JAX package's K3 tolerance (tests/test_pallas.py)
-POLYPHASE_SHAPES = [(2, 8), (6, 3), (64, 32)]
+# (rows, T): the session chunk, 36T below one 256-position tile, a batch
+# chunk, two shapes with a ragged last tile (180 positions; 1044 = 4 tiles +
+# 20), and one whose blocks walk 2 tiles and 1 ragged tile (540 positions);
+# the JAX package's K3 tolerance (tests/test_pallas.py)
+POLYPHASE_SHAPES = [(2, 8), (6, 3), (64, 32), (5, 5), (2, 29), (1024, 15)]
 K3_TOLERANCE = 2e-5
 
 
@@ -64,6 +66,23 @@ def test_rate_sweep_kernel_matches_plain_on_fma_knife_edges(cuda_device, iso):
     bits, bv = kernels.rate_sweep(m, g, iso=iso)
     pb, pv = kernels.rate_sweep_plain(m, g, iso)
     assert torch.equal(bits, pb) and torch.equal(bv, pv)
+
+
+@pytest.mark.parametrize("iso", [False, True])
+def test_rate_sweep_kernel_matches_plain_on_extreme_magnitudes(cuda_device, iso):
+    """Zeros, subnormals and magnitudes whose product overflows: the
+    quantizer's clamp and its floor without a conversion hold at the ends of
+    the float range, at every start gain."""
+    rng = np.random.default_rng(11)
+    values = np.array([0, 1e-45, 1e-40, 1e-38, 1e-10, 0.3, 7.0, 1e30, 3e38], np.float32)
+    mag = rng.choice(values, (256, 576))
+    mag[:9] = values[:, None]
+    m = torch.from_numpy(mag).to(cuda_device)
+    g = torch.arange(256, dtype=torch.int32, device=cuda_device)
+    bits, bv = kernels.rate_sweep(m, g, iso=iso)
+    pb, pv = kernels.rate_sweep_plain(m, g, iso)
+    assert torch.equal(bits, pb) and torch.equal(bv, pv)
+    assert int(bv[7].min()) == 288 and int(bv[0].max()) == 0
 
 
 @pytest.mark.parametrize("F,P,cap", PACK_SHAPES)
@@ -98,6 +117,7 @@ def test_polyphase_kernel_matches_plain(cuda_device, rows, T):
     S, x = kernels.polyphase_chunk(hist, pcm)
     assert kernels.LAUNCHES["polyphase"] == before + 1
     S_p, x_p = kernels.polyphase_chunk_plain(hist, pcm)
+    assert kernels.polyphase_plan(rows, T * 1152)["tiles_per_block"] == (2 if rows == 1024 else 1)
     assert S.shape == S_p.shape == (rows, 36 * T, 32)
     assert float((S - S_p).abs().max()) <= K3_TOLERANCE
     assert torch.equal(x, x_p)

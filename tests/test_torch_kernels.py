@@ -22,7 +22,13 @@ from swiftmp3_tpu.ops import pallas_kernels as pk
 from swiftmp3_tpu_torch.ops import dsp as tdsp
 from swiftmp3_tpu_torch.ops import kernels
 
-from .torch_inputs import knife_edge_sweep_input, pack_input, polyphase_input, sweep_input
+from .torch_inputs import (
+    fma_knife_edges,
+    knife_edge_sweep_input,
+    pack_input,
+    polyphase_input,
+    sweep_input,
+)
 
 torch.set_num_threads(1)
 
@@ -71,6 +77,61 @@ def test_rate_sweep_plain_matches_the_xla_sweep_on_fma_knife_edges(iso):
         torch.from_numpy(gains.astype(np.int32)), iso=iso,
     )
     assert np.array_equal(q.numpy(), np.minimum(separate, 15).astype(np.int32))
+
+
+def test_sweep_cost_table_is_pair_length_plus_sign_bits():
+    """The CUDA sweep's one lookup per pair: cost[16 qx + qy] is the table-15
+    code length plus one sign bit per nonzero value, for all 256 pairs, and
+    fits a byte."""
+    cost = kernels.sweep_cost_table(torch.device("cpu"))
+    assert cost.dtype == torch.uint8 and cost.shape == (256,) and cost.is_contiguous()
+    want = [
+        int(tdsp.T15_LEN[16 * qx + qy]) + (qx != 0) + (qy != 0)
+        for qx in range(16)
+        for qy in range(16)
+    ]
+    assert max(want) <= 255 and cost.tolist() == want
+    assert np.array_equal(tdsp.T15_LEN, np.asarray(jdsp._T15_LEN).reshape(-1))
+
+
+@pytest.mark.parametrize("iso", [False, True])
+def test_sweep_quantizer_without_conversions_equals_floor_and_clamp(iso):
+    """A float32 model of the CUDA sweep's quantizer: s = mag*inv + 0.5 (the
+    product and the sum rounded apart), t = min(s, 15.5), w = t + 2^23
+    rounded toward minus infinity, q = the low four bits of w's pattern. It
+    equals min(floor(s), 15) on the FMA knife edges of every gain, around
+    every integer and half-integer up to 17, and at 0, subnormals, 1e30,
+    +inf and NaN (which clamps to 15, as fminf(floorf(NaN), 15) does)."""
+    table = (tdsp.INV_STEP34 if iso else tdsp.INV_STEP).astype(np.float32)
+    sums = []
+    for g, mags in fma_knife_edges(table).items():
+        sums.append((mags * table[g]).astype(np.float32) + np.float32(0.5))
+    near = np.arange(0, 35, dtype=np.float32) / np.float32(2)  # 0, 0.5, .. 17
+    lo = hi = near
+    around = [near]
+    for _ in range(3):
+        lo = np.nextafter(lo, np.float32(-1))
+        hi = np.nextafter(hi, np.float32(np.inf))
+        around += [lo, hi]
+    special = np.array([0.0, 1e-45, 1e-38, 1e-10, 1e30, np.inf, np.nan], np.float32)
+    for m in np.concatenate([special[:5], np.float32([0.3, 7.0, 3e4])]):
+        sums.append((m * table).astype(np.float32) + np.float32(0.5))  # every gain
+    s = np.concatenate(sums + around + [special]).astype(np.float32)
+    s = s[~(s < 0)]  # magnitudes and inverse steps are never negative
+    assert s.size > 2000 and np.isnan(s).any() and np.isinf(s).any()
+
+    t = np.fmin(s, np.float32(15.5))  # fminf: the number, when one side is NaN
+    # t + 2^23 rounded down to float32 (whose spacing there is 1): the float64
+    # sum is exact for t >= 2^-6, and below that both are 2^23 + a fraction
+    w = np.floor(t.astype(np.float64) + 8388608.0).astype(np.float32)
+    assert np.array_equal(w.astype(np.float64), np.floor(t.astype(np.float64) + 8388608.0))
+    q = w.view(np.uint32) & 15
+    assert np.array_equal(w.view(np.uint32) >> 4, np.full(s.shape, 0x4B000000 >> 4, np.uint32))
+    want = np.fmin(np.floor(s), np.float32(15.0)).astype(np.uint32)
+    assert np.array_equal(q, want)
+    # the pair index: the two patterns combine under one mask
+    wx, wy = w.view(np.uint32)[:-1], w.view(np.uint32)[1:]
+    assert np.array_equal((wx * np.uint32(16) + wy) & np.uint32(255), 16 * want[:-1] + want[1:])
 
 
 @pytest.mark.parametrize("F,P,cap", PACK_SHAPES)
@@ -164,6 +225,65 @@ def test_cuda_tensors_launch_the_kernel_never_the_plain_version(monkeypatch):
     assert S.shape == (2, 2, 108, 32) and x.shape == (2, 2, 480 + 3 * 1152)
     assert launched == ["rate_sweep", "pack", "polyphase"]
     assert kernels.LAUNCHES == {"rate_sweep": 1, "pack": 1, "polyphase": 1}
+
+
+@pytest.mark.parametrize(
+    "n_rows,T,tiles,per_block,blocks",
+    [
+        (512, 128, 18, 6, 1536),  # the main path's chunk: 3 blocks a row
+        (2, 8, 2, 1, 4),  # a session chunk: 288 positions, a ragged second tile
+        (6, 3, 1, 1, 6),
+        (5, 5, 1, 1, 5),
+        (2, 29, 5, 1, 10),
+        (1024, 15, 3, 2, 2048),  # 540 positions: blocks of 2 and 1 tiles
+        (4096, 128, 18, 6, 12288),  # capped at K3_MAX_TILES_PER_BLOCK, spread evenly
+    ],
+)
+def test_polyphase_launch_plan(monkeypatch, n_rows, T, tiles, per_block, blocks):
+    """The tiling the wrapper hands to the CUDA kernel: every tile of a row
+    belongs to one block, blocks hold at most K3_MAX_TILES_PER_BLOCK
+    consecutive tiles, and the shared-memory size is the cosine matrix, one
+    tile's samples and its padded partial sums."""
+    plan = kernels.polyphase_plan(n_rows, T * 1152)
+    assert plan == {
+        "tiles": tiles, "tiles_per_block": per_block, "blocks": blocks,
+        "smem_bytes": 112512,
+    }
+    assert (tiles - 1) * kernels.K3_TILE < 36 * T <= tiles * kernels.K3_TILE
+    per_row = blocks // n_rows
+    assert (per_row - 1) * per_block < tiles <= per_row * per_block
+    assert per_block <= kernels.K3_MAX_TILES_PER_BLOCK
+    assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024  # two blocks an SM
+
+    calls = []
+    monkeypatch.setattr(kernels, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(kernels, "_require_cuda", lambda *t: None)
+    monkeypatch.setattr(kernels, "_launch", lambda name, device, *args: calls.append(args))
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(NO_LAUNCHES))
+    if n_rows <= 6:
+        hist, pcm = polyphase_input(B=n_rows, ch=1, T=T)
+        kernels.polyphase_subbands(torch.from_numpy(hist), torch.from_numpy(pcm))
+        assert calls[0][5:] == (n_rows, T * 1152, per_block, 112512)
+
+
+def test_polyphase_launch_plan_refuses_a_grid_past_the_limit():
+    assert kernels.polyphase_plan(2**31 - 1, 576)["blocks"] == kernels.MAX_GRID_BLOCKS
+    with pytest.raises(ValueError, match="grid limit"):
+        kernels.polyphase_plan(2**31, 576)
+    with pytest.raises(ValueError, match="grid limit"):
+        kernels.polyphase_plan(2**30, 9 * 256 * 32)  # 9 tiles a row: 2 blocks a row
+
+
+def test_polyphase_plan_constants_match_the_cuda_source():
+    import re
+
+    with open(f"{kernels.CSRC_DIR}/polyphase.cu") as fh:
+        src = fh.read()
+    assert int(re.search(r"constexpr int kTile = (\d+);", src).group(1)) == kernels.K3_TILE
+    assert int(re.search(r"constexpr int kHist = (\d+);", src).group(1)) == kernels.HIST
+    assert "constexpr int kPartialStride = 64 + 4;" in src
+    assert "constexpr int kSmemFloats = 64 * 32 + kSpan + kTile * kPartialStride;" in src
+    assert "constexpr int kSpan = 32 * kTile + kHist;" in src
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing(monkeypatch):
