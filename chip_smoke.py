@@ -22,12 +22,20 @@ reference streams are committed files). Phases:
   4. the main path: BatchEncoder at 256 streams x 128 frames, 128 kbps CBR
      stereo 44.1 kHz, 3 steps of unique int16 audio rendered to bytes, with
      launch counts read around it; every stream's frame walk is checked;
+  4b. the strict path: BatchEncoder at MP3EncoderOptions.spec_strict(joint
+     stereo, 128 kbps, 44.1 kHz), 256 streams x 128 frames, 2 steps of the
+     same audio, launch counts read around it, every frame walk checked;
+     then K2 against its plain version, bit-exact, on the pack input the
+     strict path gave it (P = 1872 slots a frame), with its time and bound;
   5. parity: the 8 compat fixture rows through new_session(o) against the
      JAX backend's committed streams (tests/fixtures/*.tpu.mp3), and 2
      main-path streams and the ULP-telemetry corpus against the golden numpy
      backend's frozen streams (tests/fixtures/torch/): structurally equal,
-     byte flips pinned;
-  6. a `kernels` JSON line, the card line, and the result line.
+     byte flips pinned; the same for the 4 strict fixture rows and the
+     golden strict streams;
+  6. a `kernels` JSON line (K1 and K2 as the compat main path launched
+     them, K3 as the filterbank stage did), the card line, and the result
+     line.
 
 Each kernel's bound_ms is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its lane operations over 33.5 T/s (the
@@ -56,8 +64,15 @@ FIXTURE_FLIP_CEILING = 2  # over the 8 compat fixture rows (125 frames)
 GOLDEN_FLIP_CEILING = 4  # over 2 main-path streams (256 frames)
 # the JAX backend's compat ceiling on the tests/test_ulp_telemetry corpus
 TELEMETRY_FLIP_CEILING = 2  # over 6 classes (72 frames)
+# The same on the strict path: the 4 strict fixture rows (66 frames), the 2
+# main-path streams (256 frames) against the golden strict streams, and the
+# JAX backend's strict ceiling on the telemetry corpus.
+STRICT_FIXTURE_FLIP_CEILING = 2
+STRICT_GOLDEN_FLIP_CEILING = 4
+STRICT_TELEMETRY_FLIP_CEILING = 16
 
 STEPS_MAIN = 3
+STEPS_STRICT = 2
 K3_TOLERANCE = 2e-5  # tests/test_pallas.py, the JAX package's own for K3
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -108,6 +123,62 @@ def _sweep_inputs(chunk, options, device):
     return mag, torch.clamp(g0, 0, 255).to(torch.int32).contiguous()
 
 
+def _check_walks(streams, n_frames: int) -> None:
+    """Every stream: n_frames frames of 417 or 418 bytes (128 kbps, 44.1 kHz)."""
+    for b, data in enumerate(streams):
+        frames = _frames(bytes(data))
+        if len(frames) != n_frames or {len(f) for f in frames} - {417, 418}:
+            raise AssertionError(f"stream {b}: bad frame walk ({len(frames)} frames)")
+
+
+def _drive(options, audio, steps: int):
+    """BatchEncoder over `steps` chunks of `audio` [B, T, 2304] int16, each
+    rendered to bytes; the launch counts are set to 0 just before and read
+    just after. Returns (streams, step device ms, step+render wall s,
+    launches, the first pack call's (chunks, nbits, cap))."""
+    import torch
+
+    from swiftmp3_tpu_torch.ops import kernels
+    from swiftmp3_tpu_torch.parallel.batch import BatchEncoder
+
+    B, T = audio[0].shape[:2]
+    enc = BatchEncoder(options, B, T)
+    final = np.zeros((B, T), dtype=bool)
+    valid = np.ones((B, T), dtype=bool)
+    streams = [bytearray() for _ in range(B)]
+    step_ms, wall_s, first_pack = [], [], []
+    pack = kernels.pack
+
+    def record(chunks, nbits, cap):  # keeps the first call's input, counts as before
+        if not first_pack:
+            first_pack.append((chunks.clone(), nbits.clone(), cap))
+        return pack(chunks, nbits, cap)
+
+    kernels.pack = record
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        for k in range(steps):
+            w0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs = enc.step(audio[k], final, valid)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            for b, chunk in enumerate(enc.drain(outs, valid)):
+                streams[b] += chunk
+            wall_s.append(time.perf_counter() - w0)
+        for b, tail in enumerate(enc.flush()):
+            streams[b] += tail
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        kernels.pack = pack
+        enc.close()
+    return streams, step_ms, wall_s, launches, first_pack[0]
+
+
 def main() -> int:
     import torch
 
@@ -119,11 +190,12 @@ def main() -> int:
     from swiftmp3_tpu_torch.io.huffman_pack import pack_frame_main_data
     from swiftmp3_tpu_torch.ops import dsp, kernels
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
-    from swiftmp3_tpu_torch.parallel.batch import BatchEncoder
     from tests.torch_inputs import (
         B_MAIN,
         COMPAT_FIXTURES,
         MAIN_OPTIONS,
+        STRICT_FIXTURES,
+        STRICT_OPTIONS,
         T_MAIN,
         bench_audio,
         fixture_path,
@@ -278,46 +350,46 @@ def main() -> int:
     print(f"[K3] polyphase at {100 * bound_ms / fb['ms']:.1f}% of its bound, {card}", flush=True)
 
     # ---- 4. the main path -----------------------------------------------------
-    enc = BatchEncoder(opts, B_MAIN, T_MAIN)
-    final = np.zeros((B_MAIN, T_MAIN), dtype=bool)
-    valid = np.ones((B_MAIN, T_MAIN), dtype=bool)
-    streams = [bytearray() for _ in range(B_MAIN)]
-    step_ms, wall_s = [], []
-    try:
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        for k in range(STEPS_MAIN):
-            w0 = time.perf_counter()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            outs = enc.step(audio[k], final, valid)
-            end.record()
-            end.synchronize()
-            step_ms.append(start.elapsed_time(end))
-            for b, chunk in enumerate(enc.drain(outs, valid)):
-                streams[b] += chunk
-            wall_s.append(time.perf_counter() - w0)
-        for b, tail in enumerate(enc.flush()):
-            streams[b] += tail
-        main_launches = dict(kernels.LAUNCHES)
-    finally:
-        enc.close()
+    streams, step_ms, wall_s, main_launches, _ = _drive(opts, audio, STEPS_MAIN)
     for name in ("rate_sweep", "pack"):
         if main_launches[name] <= 0:
             raise AssertionError(f"the main path never launched kernel {name}")
-    n_frames = STEPS_MAIN * T_MAIN
-    for b, data in enumerate(streams):
-        frames = _frames(bytes(data))
-        if len(frames) != n_frames or {len(f) for f in frames} - {417, 418}:
-            raise AssertionError(f"stream {b}: bad frame walk ({len(frames)} frames)")
+    _check_walks(streams, STEPS_MAIN * T_MAIN)
     audio_s = B_MAIN * T_MAIN * 1152 / opts.sample_rate
     steady = statistics.median(step_ms[1:])
     print(f"[main] BatchEncoder B={B_MAIN} T={T_MAIN} x {STEPS_MAIN} steps, {card}: "
           f"step device ms {['%.2f' % t for t in step_ms]} (steady {steady:.2f} ms, "
           f"{audio_s / (steady / 1e3):.1f} audio-s/s); step+render wall s "
-          f"{['%.3f' % t for t in wall_s]}; {B_MAIN} streams x {n_frames} frames walk OK; "
-          f"launches {main_launches}", flush=True)
+          f"{['%.3f' % t for t in wall_s]}; {B_MAIN} streams x {STEPS_MAIN * T_MAIN} frames "
+          f"walk OK; launches {main_launches}", flush=True)
+
+    # ---- 4b. the strict path ---------------------------------------------------
+    s_opts = MP3EncoderOptions.spec_strict(**STRICT_OPTIONS)
+    s_streams, s_step_ms, s_wall_s, s_launches, s_pack = _drive(s_opts, audio, STEPS_STRICT)
+    if s_launches["pack"] < STEPS_STRICT:
+        raise AssertionError(f"the strict path launched pack {s_launches['pack']} times "
+                             f"in {STEPS_STRICT} steps")
+    _check_walks(s_streams, STEPS_STRICT * T_MAIN)
+    print(f"[strict] BatchEncoder spec_strict {STRICT_OPTIONS} B={B_MAIN} T={T_MAIN} x "
+          f"{STEPS_STRICT} steps, {card}: step device ms {['%.2f' % t for t in s_step_ms]} "
+          f"({audio_s / (s_step_ms[-1] / 1e3):.1f} audio-s/s at the last step); step+render "
+          f"wall s {['%.3f' % t for t in s_wall_s]}; {B_MAIN} streams x "
+          f"{STEPS_STRICT * T_MAIN} frames walk OK; launches {s_launches}", flush=True)
+    c_d, n_d, cap = s_pack
+    by, tot = kernels.pack(c_d, n_d, cap)
+    pby, ptot = kernels.pack_plain(c_d, n_d, cap)
+    err = max(int((by.int() - pby.int()).abs().max()), int((tot - ptot).abs().max()))
+    if err:
+        raise AssertionError(f"pack kernel disagrees with its plain version at the strict shape (max {err})")
+    F, P = c_d.shape
+    ms = cuda_ms(lambda: kernels.pack(c_d, n_d, cap), reps=20)
+    plain_ms = cuda_ms(lambda: kernels.pack_plain(c_d, n_d, cap), reps=5)
+    bound_ms, bound_by = _bound(4 * 2 * F * P + F * cap + 4 * F, 6 * F * P)
+    print(f"[K2 strict] pack bit-exact on the strict path's input F={F} P={P} cap={cap} "
+          f"({int((n_d > 0).sum())} live slots), {card}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f}% of its bound", flush=True)
+    del c_d, n_d, s_pack
 
     # ---- 5. parity ---------------------------------------------------------
     fixture_flips, fixture_frames = 0, 0
@@ -352,6 +424,39 @@ def main() -> int:
         or flips["corpus"] > TELEMETRY_FLIP_CEILING
     ):
         raise AssertionError("byte flips above the pinned ceiling")
+    s_fixture_flips, s_fixture_frames = 0, 0
+    for name, kw, sig_kind, seconds, seed in STRICT_FIXTURES:
+        o = MP3EncoderOptions(**kw)
+        pcm = make_signal(sig_kind, seconds, o.sample_rate, o.channels, seed)
+        s = new_session(o)
+        got = s.encode(pcm) + s.flush()
+        with open(fixture_path(name, "tpu"), "rb") as fh:
+            ref = fh.read()
+        f = _compare_streams(got, ref, name)
+        s_fixture_flips += f
+        s_fixture_frames += len(_frames(ref))
+        print(f"[parity] {name}: structure equal, {f} frames differ", flush=True)
+    flips = {"main": 0, "corpus": 0}
+    frames = {"main": 0, "corpus": 0}
+    for stem, pcm in golden_streams(audio[0]).items():
+        s = new_session(s_opts)
+        got = s.encode(pcm) + s.flush()
+        with open(golden_path(stem, "strict"), "rb") as fh:
+            ref = fh.read()
+        group = stem.split("_")[0]
+        flips[group] += _compare_streams(got, ref, f"{stem} vs golden strict")
+        frames[group] += len(_frames(ref))
+    print(f"[parity strict] fixtures {s_fixture_flips}/{s_fixture_frames} frames differ "
+          f"(ceiling {STRICT_FIXTURE_FLIP_CEILING}); golden {flips['main']}/{frames['main']} "
+          f"(ceiling {STRICT_GOLDEN_FLIP_CEILING}); telemetry corpus vs golden "
+          f"{flips['corpus']}/{frames['corpus']} (ceiling {STRICT_TELEMETRY_FLIP_CEILING})",
+          flush=True)
+    if (
+        s_fixture_flips > STRICT_FIXTURE_FLIP_CEILING
+        or flips["main"] > STRICT_GOLDEN_FLIP_CEILING
+        or flips["corpus"] > STRICT_TELEMETRY_FLIP_CEILING
+    ):
+        raise AssertionError("strict byte flips above the pinned ceiling")
 
     # ---- 6. result lines ----------------------------------------------------
     rows = [

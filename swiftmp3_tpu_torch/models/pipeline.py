@@ -1,17 +1,25 @@
-"""The compat chunk program in PyTorch: chunk-parallel DSP + a small integer
-loop over T. Twin of the `strict_entropy=False` branch of
-`swiftmp3_tpu.models.pipeline.make_chunk_fn`.
+"""The chunk program in PyTorch: chunk-parallel DSP + small integer loops
+over T. Twin of `swiftmp3_tpu.models.pipeline.make_chunk_fn` for the compat
+preset and the spec_strict preset (MPEG-1, depth-1 reservoir).
 
 Per chunk of T frames x B streams:
 
-  Phase 1 (parallel): ingest, stereo decision, polyphase filterbank,
-    transient detection, MDCT, initial gains and the 20-candidate rate
-    sweep (kernel K1).
+  Phase 1 (parallel): ingest, stereo decision (with the ISO M/S laws),
+    polyphase filterbank, transient detection (blocks shared across M/S
+    channels under shared_ms_blocks), MDCT, then either the compat initial
+    gains and table-15 rate sweep (kernel K1), or the strict path: real
+    scalefactors, scfsi, and the strict-entropy sweep pricing all 20 gains
+    exactly (plain PyTorch, as the reference computes it outside any
+    Pallas kernel).
   Phase 2 (loop over T, integers only): bitrate, padding, reservoir budget,
     candidate selection and the reservoir mirror. Invalid frames freeze the
-    carry.
-  Phase 3 (parallel): re-quantize at the selected gains, regions, preflag,
-    table-15 chunks, the main_data pack (kernel K2) and the packed output.
+    carry. The strict path runs this loop on its priced stream-length
+    mirror (`est_stream_len`).
+  Phase 3 (parallel): re-quantize at the selected gains; compat: regions,
+    preflag, table-15 chunks; strict: the entropy layout, a second integer
+    loop over T on the actual bits (the real `stream_len` and
+    main_data_begin), scalefactor and pair/quad chunks. Then the main_data
+    pack (kernel K2) and the packed output.
 
 The carry and the packed output have the JAX program's names, shapes, dtypes
 and byte layout, so `fetch_outputs` reads both and checkpoints cross between
@@ -50,8 +58,9 @@ _CARRY_SPEC = {
 
 
 def check_supported(options: MP3EncoderOptions) -> None:
-    """Raise NotImplementedError for any option outside this slice (the
-    compat chunk program), naming the ROADMAP Queue 1 item that brings it."""
+    """Raise NotImplementedError for any option outside the port (the compat
+    and spec_strict chunk programs at MPEG-1 rates, reservoir depth 1),
+    naming the ROADMAP Queue 1 item that brings it."""
     o = options
     unsupported = [
         (o.window_sequencing, "window_sequencing", 8),
@@ -65,19 +74,13 @@ def check_supported(options: MP3EncoderOptions) -> None:
         (o.intensity_stereo, "intensity_stereo", 10),
         (bool(o.lsf), "LSF sample rates", 11),
         (o.free_format, "free_format", 11),
-        (o.iso_short_blocks, "iso_short_blocks", 7),
-        (o.spec_strict_entropy, "the strict entropy layout (count1_coding, "
-         "region_table_select, real_scalefactors)", 7),
-        (o.iso_ms_matrix, "iso_ms_matrix", 7),
-        (o.iso_mode_ext, "iso_mode_ext", 7),
-        (o.ms_symmetric, "ms_symmetric", 7),
-        (o.shared_ms_blocks, "shared_ms_blocks", 7),
     ]
     for active, name, item in unsupported:
         if active:
             raise NotImplementedError(
                 f"{name} is not in the PyTorch port yet (ROADMAP Queue 1 "
-                f"item {item}); this slice covers the compat chunk program"
+                f"item {item}); the port covers the compat and spec_strict "
+                "chunk programs"
             )
 
 
@@ -147,6 +150,8 @@ def make_chunk_fn(options: MP3EncoderOptions):
     cap_bytes = main_data_cap(options)
     aligned = options.reservoir_mode == "aligned"
     iso_quant = options.iso_quantization
+    strict = options.spec_strict_entropy
+    iso_short = options.iso_short_blocks
     joint = options.mode is Mode.JOINT_STEREO
     mode_ext = mode_bits(options.mode.value)[1]
     i32 = torch.int32
@@ -158,13 +163,17 @@ def make_chunk_fn(options: MP3EncoderOptions):
 
         # ---------------- Phase 1: parallel DSP (batch-major) ----------------
         pcm_bt = pcm.reshape(B, T * pcm.shape[-1])
+        use_ms = None  # per-frame M/S decision (joint stereo only)
         if ch == 1:
             pcm_chunk = pcm_bt[:, None, :]
         else:
             left = pcm_bt[:, 0::2].reshape(B, T, spf)
             right = pcm_bt[:, 1::2].reshape(B, T, spf)
             if joint:
-                _, c0, c1 = dsp.stereo_decide(left, right)
+                use_ms, c0, c1 = dsp.stereo_decide(
+                    left, right, iso_matrix=options.iso_ms_matrix,
+                    symmetric=options.ms_symmetric,
+                )
             else:
                 c0, c1 = left, right
             pcm_chunk = torch.stack([c0, c1], dim=1).reshape(B, ch, T * spf)
@@ -172,15 +181,45 @@ def make_chunk_fn(options: MP3EncoderOptions):
 
         S, full_x = dsp.polyphase_chunk_matmul(carry["fb_hist"], pcm_chunk)
         block_b, sb_gain_b = dsp.transient_frame(granule_pcm)  # [B,ch,T,gr], [..,3]
+        if options.shared_ms_blocks and use_ms is not None:
+            # M/S frames carry one window layout across both channels: the
+            # raw L/R verdicts, the more transient winning (pipeline.py:388-403)
+            raw_g = torch.stack([left, right], dim=1).reshape(B, 2, T, n_gr, 576)
+            shared = torch.amax(dsp.transient_frame(raw_g)[0], dim=1, keepdim=True)
+            block_b = torch.where(use_ms[:, None, :, None], shared, block_b)
         if iso_quant:
             # the unit-gain law emits no per-window gains (pipeline.py:412-417)
             sb_gain_b = torch.zeros_like(sb_gain_b)
         spectra, cur = dsp.mdct_chunk(
-            S, carry["overlap"], block_b.reshape(B, ch, n_gr * T)
+            S, carry["overlap"], block_b.reshape(B, ch, n_gr * T),
+            iso_mixed_alias=iso_short,
         )
         spectra = spectra.reshape(B, ch, T, n_gr, 576)
-        g0 = dsp.initial_gain(spectra, iso=iso_quant)
-        pre = dsp.rate_loop_precompute(spectra, g0, iso=iso_quant)
+
+        sfd = scfsi_nib = sf_write = None
+        if strict:
+            is_long_b = block_b == dsp.BLOCK_LONG
+            if options.real_scalefactors:
+                sfd = dsp.granule_scalefactors_device(
+                    spectra, sr, block_b, psy=options.psy_scalefactors, iso_short=iso_short
+                )
+                g0 = dsp.initial_gain_scaled(spectra, sfd["mag_scale"])
+                mag_scale, part2 = sfd["mag_scale"], sfd["part2"]
+                if options.scfsi:
+                    # granule 1 skips the band groups equal to granule 0's
+                    scfsi_nib, sf_write = dsp.scfsi_device(sfd["sf"], is_long_b)
+                    part2 = dsp.scfsi_part2_device(sfd, sf_write)
+            else:
+                g0 = dsp.initial_gain(spectra, iso=iso_quant)
+                mag_scale = part2 = None
+            pre = dsp.rate_loop_precompute_strict(
+                spectra, g0, sr, is_long_b, iso_quant, options.count1_coding,
+                options.region_table_select, mag_scale=mag_scale, part2=part2,
+                block=block_b, iso_short=iso_short,
+            )
+        else:
+            g0 = dsp.initial_gain(spectra, iso=iso_quant)
+            pre = dsp.rate_loop_precompute(spectra, g0, iso=iso_quant)
 
         def tm(x):  # [B, ch, T, gr, ...] -> [T, B, G, ...], G = gr*ch + c
             rest = tuple(range(4, x.dim()))
@@ -199,11 +238,39 @@ def make_chunk_fn(options: MP3EncoderOptions):
         evaluated_t = tm(pre["evaluated"])
         k_budget_t = tm(pre["k_budget"])
 
+        def keep(new, old, val):  # invalid frames freeze the carry
+            return {
+                k: torch.where(val.reshape((B,) + (1,) * (v.dim() - 1)), v, old[k])
+                for k, v in new.items()
+            }
+
+        def gap_of(c):
+            """Buffered slot bytes past the stream mirror (aligned reservoir
+            only: the compat law never reads it)."""
+            if not aligned:
+                return None
+            return torch.sum(c["slot_fifo"], dim=1, dtype=i32) - c["stream_len"]
+
+        def placement(c, gap, hb, fin):
+            """main_data_begin and the stream-length mirror after a frame of
+            hb bytes (depth 1: tail-aligned in the aligned reservoir)."""
+            if aligned:
+                mdb = torch.clamp(torch.minimum(gap, hb), 0, res_cap)
+                sl = c["stream_len"] + (gap - mdb) + hb - c["slot_fifo"][:, 0]
+            else:
+                mdb = torch.where(fin, 0, torch.clamp(c["stream_len"], max=res_cap))
+                sl = c["stream_len"] + hb - c["slot_fifo"][:, 0]
+            return mdb, torch.clamp(sl, min=0)
+
         # ---------------- Phase 2: integer loop over T ----------------
         c = {
             k: carry[k]
             for k in ("stream_len", "avail", "pad_rem", "slot_fifo", "vbr_ehist", "vbr_count")
         }
+        if strict:
+            # the selection runs in the priced world; the real stream_len and
+            # mdb come from the second loop below on the actual bits
+            c["stream_len"] = carry["est_stream_len"]
         if not is_vbr:
             br_idx_c = torch.full((B,), cbr_index, dtype=i32, device=dev)
             br_val_c = torch.full((B,), cbr_value, dtype=i32, device=dev)
@@ -227,30 +294,18 @@ def make_chunk_fn(options: MP3EncoderOptions):
             pad_rem = pad_acc - padding * sr
             slot = base_size + padding - 4 - crc_size - side_size
 
-            sum_fifo = torch.sum(c["slot_fifo"], dim=1, dtype=i32)
-            oldest = c["slot_fifo"][:, 0]
+            gap = gap_of(c)
             res_bits = torch.where(fin, 0, c["avail"] * 8)
             usable = (res_bits * 9) // 10
             if aligned:
-                gap_b = sum_fifo - c["stream_len"]
-                usable = torch.minimum(usable, torch.clamp(gap_b, 0, res_cap) * 8)
+                usable = torch.minimum(usable, torch.clamp(gap, 0, res_cap) * 8)
             bits_per_granule = (slot * 8 + usable) // n_gran
 
             k_sel, has_fit, bits_sel = dsp.rate_loop_select(
                 bits_t[t], evaluated_t[t], k_budget_t[t], bits_per_granule[:, None]
             )
             huffman_bytes = (torch.sum(bits_sel, dim=-1, dtype=i32) + 7) // 8
-            if aligned:
-                gap = sum_fifo - c["stream_len"]
-                mdb = torch.clamp(torch.minimum(gap, huffman_bytes), 0, res_cap)
-                stream_len = torch.clamp(
-                    c["stream_len"] + (gap - mdb) + huffman_bytes - oldest, min=0
-                )
-            else:
-                mdb = torch.where(fin, 0, torch.clamp(c["stream_len"], max=res_cap))
-                stream_len = torch.clamp(
-                    c["stream_len"] + huffman_bytes - oldest, min=0
-                )
+            mdb, stream_len = placement(c, gap, huffman_bytes, fin)
             new_c = {
                 "stream_len": stream_len,
                 "avail": torch.clamp(c["avail"] + slot - huffman_bytes, 0, res_cap),
@@ -259,25 +314,62 @@ def make_chunk_fn(options: MP3EncoderOptions):
                 "vbr_ehist": torch.cat([c["vbr_ehist"][:, n_gran:], granule_e[t]], dim=1),
                 "vbr_count": torch.clamp(c["vbr_count"] + n_gran, max=10),
             }
-            c = {
-                k: torch.where(val.reshape((B,) + (1,) * (v.dim() - 1)), v, c[k])
-                for k, v in new_c.items()
-            }
+            c = keep(new_c, c, val)
             ys.append((br_idx, padding, mdb, slot, k_sel, has_fit, bits_sel))
         br_idx, padding, mdb, slot, k_sel, has_fit, bits_sel = (
             torch.stack(y) for y in zip(*ys)
         )
 
         # ---------------- Phase 3: parallel finalize (batch-major) --------
-        gain_b, quantized, big_values_b = dsp.rate_loop_finalize(
-            pre, bm(k_sel), bm(has_fit)
-        )
-        region0_b, region1_b = dsp.region_counts(big_values_b, sr)
+        new_carry = dict(c)
+        if strict:
+            gain_b, quantized, lay = dsp.strict_finalize(pre, bm(k_sel), bm(has_fit))
+            # part2_3_length and the reservoir on the ACTUAL bits of the
+            # selected gains (pipeline.py:958-1006)
+            part23 = tm(lay["bits"] + (part2 if part2 is not None else 0))
+            hb_t = (torch.sum(part23, dim=-1, dtype=i32) + 7) // 8
+            c2 = {"stream_len": carry["stream_len"], "slot_fifo": carry["slot_fifo"]}
+            mdbs = []
+            for t in range(T):
+                mdb_t, sl = placement(c2, gap_of(c2), hb_t[t], final_t[t])
+                new_c2 = {
+                    "stream_len": sl,
+                    "slot_fifo": torch.cat([c2["slot_fifo"][:, 1:], slot[t][:, None]], dim=1),
+                }
+                c2 = keep(new_c2, c2, valid_t[t])
+                mdbs.append(mdb_t)
+            mdb = torch.stack(mdbs)
+            new_carry["est_stream_len"] = c["stream_len"]
+            new_carry["stream_len"] = c2["stream_len"]
+            big_values_b = lay["bv"]
+            region0_b, region1_b = lay["r0"], lay["r1"]
+            table_sel = torch.stack(
+                [tm(lay["tid0"]), tm(lay["tid1"]), tm(lay["tid2"])], dim=-1
+            ).reshape(T, B, 3 * n_gran)
+            c1t_b = lay["c1t"]
+            chunks, nb = dsp.strict_chunks_device(quantized, lay)
+            if sfd is not None:
+                # the scalefactor bits lead each granule's main_data (part2)
+                sf_chunks, sf_nbits = dsp.scalefactor_chunks_device(sfd, sf_write)
+                chunks = torch.cat([sf_chunks, chunks], dim=-1)
+                nb = torch.cat([sf_nbits, nb], dim=-1)
+                scfc_b = sfd["compress"]
+            else:
+                scfc_b = torch.zeros_like(big_values_b)
+        else:
+            part23 = bits_sel
+            gain_b, quantized, big_values_b = dsp.rate_loop_finalize(
+                pre, bm(k_sel), bm(has_fit)
+            )
+            region0_b, region1_b = dsp.region_counts(big_values_b, sr)
+            table_sel = torch.full((T, B, 3 * n_gran), 15, dtype=i32, device=dev)
+            c1t_b = scfc_b = torch.zeros_like(big_values_b)
+            chunks, nb = dsp.pair_chunks_device(quantized, big_values_b)
+            new_carry["est_stream_len"] = carry["est_stream_len"]
         if iso_quant:
             pref_b = torch.zeros_like(big_values_b)  # no pre-emphasis applied
         else:
             pref_b = dsp.preflag(spectra)
-        chunks, nb = dsp.pair_chunks_device(quantized, big_values_b)
 
         def frame_major(x):  # [B, ch, T, gr, W] -> [B*T, n_gran*W], (gr, ch) order
             return x.permute(0, 2, 3, 1, 4).reshape(B * T, n_gran * x.shape[-1])
@@ -287,14 +379,22 @@ def make_chunk_fn(options: MP3EncoderOptions):
         )
         main_data = main_data.reshape(B, T, cap_bytes)
 
-        zeros_g = torch.zeros((T, B, n_gran), dtype=i32, device=dev)
+        if scfsi_nib is not None:
+            scfsi_t = scfsi_nib.permute(2, 0, 1)  # [B, ch, T] -> [T, B, ch]
+        else:
+            scfsi_t = torch.zeros((T, B, ch), dtype=i32, device=dev)
+        if use_ms is not None and options.iso_mode_ext:
+            # the header carries each frame's actual M/S decision
+            mode_ext_t = torch.where(use_ms.transpose(0, 1), 2, 0)
+        else:
+            mode_ext_t = torch.full((T, B), mode_ext, dtype=i32, device=dev)
         meta = torch.cat(
             [
                 br_idx[..., None],
                 padding[..., None],
                 mdb[..., None],
                 slot[..., None],
-                bits_sel,  # part2_3_length
+                part23,  # part2_3_length
                 tm(big_values_b),
                 tm(gain_b),
                 tm(block_b),
@@ -302,11 +402,11 @@ def make_chunk_fn(options: MP3EncoderOptions):
                 tm(region0_b),
                 tm(region1_b),
                 tm(sb_gain_b).reshape(T, B, 3 * n_gran),
-                torch.full((T, B, 3 * n_gran), 15, dtype=i32, device=dev),  # table_select
-                zeros_g,  # count1table
-                zeros_g,  # scalefac_compress
-                torch.zeros((T, B, ch), dtype=i32, device=dev),  # scfsi
-                torch.full((T, B, 1), mode_ext, dtype=i32, device=dev),
+                table_sel,
+                tm(c1t_b),  # count1table
+                tm(scfc_b),  # scalefac_compress
+                scfsi_t,
+                mode_ext_t[..., None].to(i32),
             ],
             dim=-1,
         ).to(i32)
@@ -322,8 +422,6 @@ def make_chunk_fn(options: MP3EncoderOptions):
         gi = (n_gr * count_valid)[:, None, None, None].expand(B, ch, 1, 576)
         overlap = torch.gather(all_ov, 2, gi)[:, :, 0]
 
-        new_carry = dict(c)
-        new_carry["est_stream_len"] = carry["est_stream_len"]
         new_carry["fb_hist"] = fb_hist
         new_carry["overlap"] = overlap
         return new_carry, outputs
@@ -389,7 +487,8 @@ def frame_results_from_outputs(
     outs: dict, options: MP3EncoderOptions, t: int, b: int
 ) -> FrameResult:
     """One (stream, time) slice of fetched outputs as a FrameResult for the
-    host assembler (twin of pipeline.py:1243-1308, compat block types)."""
+    host assembler (twin of pipeline.py:1243-1308 without the window
+    sequencing's START/STOP granules)."""
     ch = options.channels
     n_gr = options.n_granules
     granules = [[None] * ch for _ in range(n_gr)]
@@ -402,14 +501,22 @@ def frame_results_from_outputs(
             global_gain=int(outs["gain"][b, t, g]),
             scalefac_compress=int(outs["scalefac_compress"][b, t, g]),
             window_switching=0 if block == dsp.BLOCK_LONG else 1,
-            block_type=block,
+            # iso_short_blocks signals a mixed granule as ISO block_type 2 +
+            # mixed_block_flag (the reference's raw enum writes 1, ISO start)
+            block_type=(
+                dsp.BLOCK_SHORT
+                if options.iso_short_blocks and block == dsp.BLOCK_MIXED
+                else block
+            ),
             mixed_block_flag=1 if block == dsp.BLOCK_MIXED else 0,
             table_select=tuple(int(x) for x in outs["table_select"][b, t, g]),
             subblock_gain=tuple(int(x) for x in outs["subblock_gain"][b, t, g]),
             region0_count=int(outs["region0"][b, t, g]),
             region1_count=int(outs["region1"][b, t, g]),
             preflag=int(outs["preflag"][b, t, g]),
-            scalefac_scale=0,
+            # real_scalefactors amplify by 2^(0.75 sf), which the ISO factor
+            # cancels exactly at scalefac_scale = 1
+            scalefac_scale=1 if options.real_scalefactors else 0,
             count1table_select=int(outs["count1table"][b, t, g]),
         )
     hb = int(outs["hb"][b, t])
@@ -453,7 +560,7 @@ def carry_from_jax(state: dict, device: torch.device) -> dict:
     extra = sorted(set(state) - set(_CARRY_SPEC))
     if extra:
         raise NotImplementedError(
-            f"carry keys {extra} belong to options outside the compat slice "
+            f"carry keys {extra} belong to options outside the port "
             "(window_sequencing: ROADMAP Queue 1 item 8)"
         )
     carry = {}

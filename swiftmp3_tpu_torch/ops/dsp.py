@@ -1,15 +1,16 @@
-"""Batched granule DSP of the compat chunk program, in PyTorch.
+"""Batched granule DSP of the compat and spec_strict chunk programs, in
+PyTorch.
 
-Twin of `swiftmp3_tpu.ops.dsp` for the ops the compat preset runs. Same
-shapes and layouts as the JAX functions (batch-leading, [..., 576] granule
-rows), same float32 operation order where the JAX code fixes one.
+Twin of `swiftmp3_tpu.ops.dsp` for the ops those presets run. Same shapes and
+layouts as the JAX functions (batch-leading, [..., 576] granule rows), same
+float32 operation order where the JAX code fixes one.
 
 The JAX module avoids TPU gathers with where-tree lookups, exact `ldexp`
-step reconstruction and one-hot selects. Here the same values come the way a
-GPU computes them: 256-entry tables indexed directly. The tables are built
-from the port's own copy of the ISO tables (`swiftmp3_tpu_torch.tables`) in
-numpy float64 exactly as the JAX module builds its constants (tests hold
-them equal bit for bit).
+step reconstruction, one-hot selects and static slice/transpose reorders.
+Here the same values come the way a GPU computes them: small tables indexed
+directly and index gathers. The tables are built from the port's own copy of
+the ISO tables (`swiftmp3_tpu_torch.tables`) in numpy float64 exactly as the
+JAX module builds its constants (tests hold them equal bit for bit).
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ from ..tables import (
     ANALYSIS_MATRIX,
     BITRATE_TABLE_V1,
     BITRATE_TABLE_V2,
+    COUNT1A_CODE,
+    COUNT1A_LEN,
+    HUFFMAN_TABLES,
     ISO_WINDOW,
     LONG_MDCT_MATRIX,
     LONG_WINDOW,
@@ -33,6 +37,10 @@ from ..tables import (
     TABLE15_CODE,
     TABLE15_LEN,
     band_table,
+    mixed_reorder_src,
+    short_band_bounds,
+    short_reorder_src,
+    table_for_max,
 )
 
 from . import kernels
@@ -69,11 +77,14 @@ def build_polyphase_fold() -> np.ndarray:
     return np.stack(mats)  # [5, 128, 128]
 
 
-def build_mdct_fold() -> tuple[np.ndarray, np.ndarray]:
-    """Compat MDCT fold (twin of dsp._build_mdct_fold's "p"/"c"): window x
-    MDCT matrix x norm (x aliasing) as [576, 1188] matrices over the flat
-    (t*32 + sb) granule layout. Columns 0-575: aliased long law; 576-1151:
-    short law; 1152-1187: the mixed granules' unaliased-long head."""
+def build_mdct_fold(iso_mixed_alias: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """MDCT fold (twin of dsp._build_mdct_fold's "p"/"c", or "p_iso"/"c_iso"
+    with iso_mixed_alias): window x MDCT matrix x norm (x aliasing) as
+    [576, 1188] matrices over the flat (t*32 + sb) granule layout. Columns
+    0-575: aliased long law; 576-1151: short law; 1152-1187: the mixed
+    granules' long head, unaliased (compat) or with the subband 0/1
+    butterfly folded in (iso_mixed_alias, the one boundary an ISO decoder
+    inverts for mixed blocks)."""
     W36 = np.asarray(LONG_WINDOW, dtype=np.float64)
     ML = np.asarray(LONG_MDCT_MATRIX, dtype=np.float64)
     SW = np.asarray(SHORT_WINDOW, dtype=np.float64)
@@ -113,8 +124,19 @@ def build_mdct_fold() -> tuple[np.ndarray, np.ndarray]:
                 for sb in range(32):
                     tgt[t * 32 + sb, sb * 18 + 3 * m + w] += wgt
 
-    MP = np.concatenate([Lp @ A, Sp, Lp[:, :36]], axis=1)
-    MC = np.concatenate([Lc @ A, Sc, Lc[:, :36]], axis=1)
+    if iso_mixed_alias:
+        A1 = np.eye(576)
+        for i in range(8):
+            pu, pl = 17 - i, 18 + i  # subband 0 top / subband 1 bottom
+            A1[pu, pu] = cs[i]
+            A1[pl, pu] = ca[i]
+            A1[pl, pl] = cs[i]
+            A1[pu, pl] = -ca[i]
+        head_p, head_c = (Lp @ A1)[:, :36], (Lc @ A1)[:, :36]
+    else:
+        head_p, head_c = Lp[:, :36], Lc[:, :36]
+    MP = np.concatenate([Lp @ A, Sp, head_p], axis=1)
+    MC = np.concatenate([Lc @ A, Sc, head_c], axis=1)
     return MP.astype(np.float32), MC.astype(np.float32)
 
 
@@ -148,6 +170,7 @@ WINDOW_REV = np.ascontiguousarray(ISO_WINDOW[::-1], dtype=np.float32)  # [512]
 MATRIX_REV_T = np.ascontiguousarray(ANALYSIS_MATRIX[:, ::-1].T, dtype=np.float32)  # [64, 32]
 POLY_FOLD = build_polyphase_fold()
 MDCT_FOLD_P, MDCT_FOLD_C = build_mdct_fold()
+MDCT_FOLD_P_ISO, MDCT_FOLD_C_ISO = build_mdct_fold(iso_mixed_alias=True)
 SIGN_FLAT = build_sign_flat()
 INV_STEP, INV_STEP34 = build_inv_step_tables()
 T15_LEN = TABLE15_LEN.astype(np.int32)  # [256]
@@ -161,6 +184,8 @@ _CONSTANTS = {
     "poly_fold": POLY_FOLD,
     "mdct_p": MDCT_FOLD_P,
     "mdct_c": MDCT_FOLD_C,
+    "mdct_p_iso": MDCT_FOLD_P_ISO,
+    "mdct_c_iso": MDCT_FOLD_C_ISO,
     "sign_flat": SIGN_FLAT,
     "inv_step": INV_STEP,
     "inv_step34": INV_STEP34,
@@ -198,17 +223,25 @@ def ingest(pcm: torch.Tensor) -> torch.Tensor:
 
 
 def stereo_decide(
-    left: torch.Tensor, right: torch.Tensor
+    left: torch.Tensor,
+    right: torch.Tensor,
+    iso_matrix: bool = False,
+    symmetric: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Joint-stereo M/S decision per frame with the compat /2 matrix
-    (dsp.py:1196-1221): M/S when side energy < 0.4 x mid energy.
+    """Joint-stereo M/S decision per frame (dsp.py:1196-1221): M/S when side
+    energy < 0.4 x mid energy. iso_matrix: (L +- R)/sqrt(2) in place of the
+    compat /2 (the decision is scale-invariant); symmetric
+    (options.ms_symmetric): also M/S when mid energy < 0.4 x side energy.
     left/right: [..., 1152]. Returns (use_ms [...] bool, ch0, ch1)."""
-    mid = (left + right) * 0.5
-    side = (left - right) * 0.5
+    half = float(np.float32(1.0 / np.sqrt(2.0))) if iso_matrix else 0.5
+    mid = (left + right) * half
+    side = (left - right) * half
     n = float(left.shape[-1])
     mid_e = torch.sum(mid * mid, dim=-1) / n
     side_e = torch.sum(side * side, dim=-1) / n
     use_ms = side_e < mid_e * 0.4
+    if symmetric:
+        use_ms = use_ms | (mid_e < side_e * 0.4)
     ch0 = torch.where(use_ms[..., None], mid, left)
     ch1 = torch.where(use_ms[..., None], side, right)
     return use_ms, ch0, ch1
@@ -274,10 +307,15 @@ def transient_frame(
 
 
 def mdct_chunk(
-    S: torch.Tensor, overlap: torch.Tensor, block_type: torch.Tensor
+    S: torch.Tensor,
+    overlap: torch.Tensor,
+    block_type: torch.Tensor,
+    iso_mixed_alias: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """MDCT for all 2T granules of a chunk, compat law (dsp.py:556-618 with
-    iso_mixed_alias=False, window_seq=False).
+    """MDCT for all 2T granules of a chunk (dsp.py:556-618, window_seq=False):
+    long, short and mixed laws from one fold; iso_mixed_alias
+    (options.iso_short_blocks) folds the subband 0/1 butterfly into the
+    mixed granules' long head.
 
     S: [..., 36T, 32]; overlap: [..., 576] previous granule's inverted
     subband samples (flat t*32 + sb); block_type: [..., 2T]. Returns
@@ -289,8 +327,9 @@ def mdct_chunk(
     ext = torch.cat([overlap[..., None, :], signed], dim=-2)
     prev = ext[..., :n_gran, :]
     cur = ext[..., 1:, :]
-    all_laws = torch.matmul(prev, constant("mdct_p", S.device)) + torch.matmul(
-        cur, constant("mdct_c", S.device)
+    sfx = "_iso" if iso_mixed_alias else ""
+    all_laws = torch.matmul(prev, constant("mdct_p" + sfx, S.device)) + torch.matmul(
+        cur, constant("mdct_c" + sfx, S.device)
     )
     long_aliased = all_laws[..., :576]
     short = all_laws[..., 576:1152]
@@ -487,3 +526,650 @@ def pair_chunks_device(
     pair_idx = torch.arange(288, dtype=_I32, device=q.device)
     mask = pair_idx < big_values[..., None]
     return torch.where(mask, chunk, 0), torch.where(mask, nbits, 0)
+
+
+# --- Spec-strict entropy layout (twin of dsp.py:1273-1880) ------------------------
+# The JAX module reads the strict tables through nibble/halfword where-trees
+# (no TPU gathers). Here each is a small table indexed directly; the tests hold
+# every entry equal to the JAX lookup over its whole index range.
+
+_STRICT_TIDS = (1, 2, 5, 7, 15)  # the ids table_for_max selects (0: nothing coded)
+
+
+def build_pair_tables() -> tuple[np.ndarray, np.ndarray]:
+    """Pair code lengths and codes by table id, [16, 256] int32: row tid,
+    column x*16 + y in the 16x16 layout, zeros outside each table's
+    (max_value + 1)^2 corner and in the rows of ids never selected (0
+    included)."""
+    lens = np.zeros((16, 16, 16), np.int32)
+    codes = np.zeros((16, 16, 16), np.int32)
+    for tid in _STRICT_TIDS:
+        t = HUFFMAN_TABLES[tid]
+        n = t.max_value + 1
+        lens[tid, :n, :n] = t.lengths
+        codes[tid, :n, :n] = t.codes
+    return lens.reshape(16, 256), codes.reshape(16, 256)
+
+
+PAIR_LEN, PAIR_CODE = build_pair_tables()
+_Q16 = (np.arange(16) != 0).astype(np.int32)
+# a coded pair's bits under table tid: code length + one sign bit per nonzero
+PAIR_COST = PAIR_LEN + (_Q16[:, None] + _Q16[None, :]).reshape(1, 256)
+PAIR_COST[0] = 0
+TABLE_FOR_MAX = np.array([table_for_max(m) for m in range(16)], dtype=np.int32)
+COUNT1A_LEN_T = COUNT1A_LEN.astype(np.int32)
+COUNT1A_CODE_T = COUNT1A_CODE.astype(np.int32)
+
+# scalefac_compress -> (slen1, slen2), ISO 2.4.2.7 (a copy of
+# swiftmp3_tpu/ops/reference.py:SLEN_TABLE; tests hold it equal)
+SLEN_TABLE = (
+    (0, 0), (0, 1), (0, 2), (0, 3), (3, 0), (1, 1), (1, 2), (1, 3),
+    (2, 1), (2, 2), (2, 3), (3, 1), (3, 2), (3, 3), (4, 2), (4, 3),
+)
+SLEN1 = np.array([a for a, _ in SLEN_TABLE], dtype=np.int32)
+SLEN2 = np.array([b for _, b in SLEN_TABLE], dtype=np.int32)
+# bits to hold a scalefactor value 0..15
+SF_BITLEN = np.array([0, 1, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4, 4, 4, 4, 4], dtype=np.int32)
+
+
+def build_compress_for_need() -> np.ndarray:
+    """[5 * 5] int32: the smallest scalefac_compress whose (slen1, slen2)
+    hold (need1, need2) bits, 15 when none does (twin of the descending
+    where-chain of dsp._sf_finish_device), index need1 * 5 + need2."""
+    out = np.full((5, 5), 15, dtype=np.int32)
+    for n1 in range(5):
+        for n2 in range(5):
+            for c in range(15, -1, -1):
+                s1, s2 = SLEN_TABLE[c]
+                if n1 <= s1 and n2 <= s2:
+                    out[n1, n2] = c
+    return out.reshape(25)
+
+
+COMPRESS_FOR_NEED = build_compress_for_need()
+SF_MULT34 = (2.0 ** (0.75 * np.arange(16, dtype=np.float64))).astype(np.float32)
+SF_SLOTS = 36  # scalefactor transmission slots per granule (reference.SF_SLOTS)
+# scfsi band groups, ISO 2.4.2.7 (reference.SCFSI_GROUPS)
+SCFSI_GROUPS = ((0, 6), (6, 11), (11, 16), (16, 21))
+# masking-driven scalefactors: spreading slope per band, share of the gap
+# (reference.PSY_SLOPE, PSY_ALPHA_NUM / PSY_ALPHA_DEN)
+PSY_SLOPE = 4
+PSY_ALPHA_NUM, PSY_ALPHA_DEN = 1, 2
+
+_CONSTANTS.update(
+    {
+        "pair_len": PAIR_LEN.reshape(-1),
+        "pair_code": PAIR_CODE.reshape(-1),
+        "pair_cost": PAIR_COST.reshape(-1),
+        "table_for_max": TABLE_FOR_MAX,
+        "count1a_len": COUNT1A_LEN_T,
+        "count1a_code": COUNT1A_CODE_T,
+        "slen1": SLEN1,
+        "slen2": SLEN2,
+        "sf_bitlen": SF_BITLEN,
+        "compress_for_need": COMPRESS_FOR_NEED,
+        "sf_mult34": SF_MULT34,
+    }
+)
+
+
+def _long_bounds(sample_rate: int) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(band_table(sample_rate))]).astype(np.int64)
+
+
+def build_slot_maps(sample_rate: int) -> np.ndarray:
+    """[3, 576] int64: the scalefactor slot each natural coefficient takes
+    its 2^(0.75 sf) amplification from, for the long, mixed and short slot
+    layouts (rows in block-type order); SF_SLOTS marks coefficients with no
+    scalefactor (amplification 1). Long: band b -> slot b. Short: short band
+    s, window w (coefficient 3 * line + w) -> slot 3s + w. Mixed: the long
+    head's bands 0-7 -> slots 0-7, short bands 3-11 -> slot 8 + 3(s - 3) + w."""
+    lb = _long_bounds(sample_rate)
+    sb = short_band_bounds(sample_rate)
+    coef = np.arange(576)
+    band = np.searchsorted(lb, coef, side="right") - 1  # 21 past the last band
+    long_map = np.where(band < 21, band, SF_SLOTS)
+    line, w = coef // 3, coef % 3
+    sband = np.searchsorted(sb, line, side="right") - 1  # 12 = the uncoded tail
+    short_map = np.where(sband < 12, 3 * sband + w, SF_SLOTS)
+    head = 3 * int(sb[3])  # natural coefficients under the mixed long head
+    mixed_map = np.where(
+        coef < head, band, np.where(sband < 12, 8 + 3 * (sband - 3) + w, SF_SLOTS)
+    )
+    return np.stack([long_map, mixed_map, short_map]).astype(np.int64)
+
+
+def build_reorder_perms(sample_rate: int) -> np.ndarray:
+    """[3, 576] int64 source permutations natural -> ISO 2.4.3.4.8 stream
+    order (stream[j] = natural[src[j]]) by block type: identity for long
+    granules, tables.mixed_reorder_src, tables.short_reorder_src."""
+    return np.stack(
+        [np.arange(576), mixed_reorder_src(sample_rate), short_reorder_src(sample_rate)]
+    ).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _rate_table(name: str, sample_rate: int, device: torch.device) -> torch.Tensor:
+    if name == "slot_maps":
+        arr = build_slot_maps(sample_rate)
+    elif name == "reorder":
+        arr = build_reorder_perms(sample_rate)
+    elif name == "unreorder":
+        arr = np.argsort(build_reorder_perms(sample_rate), axis=-1)
+    else:  # region bounds with 576 past the last band (k = r0 + 1 + r1 <= 22)
+        arr = np.concatenate([build_region_bounds(sample_rate), [576, 576]]).astype(np.int32)
+    return torch.from_numpy(arr).to(device)
+
+
+def reorder_natural_to_stream(x: torch.Tensor, sample_rate: int, mixed: bool) -> torch.Tensor:
+    """x [..., 576] natural (subband-major) -> ISO stream order (short-sfb
+    major, a band's three windows consecutive); mixed keeps the long head in
+    place (dsp.py:2609-2632). One index gather."""
+    return x[..., _rate_table("reorder", sample_rate, x.device)[1 if mixed else 2]]
+
+
+def reorder_stream_to_natural(x: torch.Tensor, sample_rate: int, mixed: bool) -> torch.Tensor:
+    """Inverse of reorder_natural_to_stream (dsp.py:2635-2658)."""
+    return x[..., _rate_table("unreorder", sample_rate, x.device)[1 if mixed else 2]]
+
+
+def _last_nonzero_count(q: torch.Tensor) -> torch.Tensor:
+    """Count through the last nonzero coefficient, 0 if all zero."""
+    idx = torch.arange(1, q.shape[-1] + 1, dtype=_I32, device=q.device)
+    return torch.amax(torch.where(q != 0, idx, 0), dim=-1)
+
+
+def _region_bounds(
+    r0: torch.Tensor, r1: torch.Tensor, sample_rate: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(b0, b1) value-index region boundaries as decoders read them
+    (dsp.py:1454-1462): bounds[r0] and bounds[r0 + 1 + r1], 576 past the
+    last band."""
+    ext = _rate_table("bounds", sample_rate, r0.device)
+    return ext[r0.long()], ext[(r0 + 1 + r1).long()]
+
+
+def _count1_quads(flags: torch.Tensor, use2: torch.Tensor) -> torch.Tensor:
+    """[..., 144, 4] quads of a [..., 576] int32 array at positions 0 + 4j,
+    or (use2 [...]) 2 + 4j with the last quad zero."""
+    q0 = flags.reshape(*flags.shape[:-1], 144, 4)
+    q2 = torch.nn.functional.pad(flags[..., 2:574].reshape(*flags.shape[:-1], 143, 4), (0, 0, 0, 1))
+    return torch.where(use2[..., None, None], q2, q0)
+
+
+def _pair_regions(b0: torch.Tensor, b1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pair positions [288], each pair's region 0/1/2 [..., 288] int64) by
+    the value-index boundaries b0 <= b1."""
+    pairpos = torch.arange(0, 576, 2, dtype=_I32, device=b0.device)
+    region = torch.where(
+        pairpos < b0[..., None], 0, torch.where(pairpos < b1[..., None], 1, 2)
+    )
+    return pairpos, region
+
+
+def _pair_tids(tids: list, region: torch.Tensor) -> torch.Tensor:
+    """Each pair's table id from its region's [..., 288]."""
+    return torch.gather(torch.stack(tids, dim=-1), -1, region)
+
+
+def strict_layout_device(
+    q: torch.Tensor,
+    sample_rate: int,
+    is_long: torch.Tensor,
+    count1_coding: bool,
+    region_table_select: bool,
+    assume_abs: bool = False,
+    b0_switch: torch.Tensor | None = None,
+) -> dict:
+    """Layout integers of quantized spectra q [..., 576] int32 (dsp.py:
+    1481-1601): big_values with the count1 region, region counts, per-region
+    table ids, the count1 table and the bits of the pairs plus the quads.
+    is_long [...] bool broadcasts against q's leading dims. assume_abs: q is
+    already nonnegative and capped at 15 (the sweep). b0_switch is the LSF
+    switching-granule region-0 boundary (MPEG-1 keeps 36)."""
+    if b0_switch is not None:
+        raise NotImplementedError("b0_switch belongs to LSF (ROADMAP Queue 1 item 11)")
+    dev = q.device
+    av = q if assume_abs else torch.clamp(torch.abs(q), max=15)
+    pos = torch.arange(1, 577, dtype=_I32, device=dev)
+    l0c = torch.amax(torch.where(av > 0, pos, 0), dim=-1)
+    if count1_coding:
+        c1c = torch.amax(torch.where(av > 1, pos, 0), dim=-1)
+        bv2 = torch.clamp((c1c + 1) & ~1, max=576)
+        n1 = (torch.clamp(l0c - bv2, min=0) + 3) // 4
+        bv2 = torch.where(bv2 + 4 * n1 > 576, bv2 + 2, bv2)
+        n1 = (torch.clamp(l0c - bv2, min=0) + 3) // 4
+    else:
+        bv2 = torch.clamp((l0c + 1) & ~1, max=576)
+        n1 = torch.zeros_like(bv2)
+    bv = bv2 >> 1
+
+    r0, r1 = region_counts(bv, sample_rate)
+    b0l, b1l = _region_bounds(r0, r1, sample_rate)
+    b0 = torch.where(is_long, b0l, 36)
+    b1 = torch.where(is_long, b1l, 576)
+
+    x = av[..., 0::2]
+    y = av[..., 1::2]
+    pairpos, region = _pair_regions(b0, b1)
+    valid = pairpos < bv2[..., None]
+    if region_table_select:
+        m_pair = torch.maximum(x, y)
+        tfm = constant("table_for_max", dev)
+        tids = [
+            tfm[torch.amax(torch.where((region == r) & valid, m_pair, 0), dim=-1).long()]
+            for r in range(3)
+        ]
+        tids[2] = torch.where(is_long, tids[2], 0)
+    else:
+        tids = [torch.full_like(bv, 15) for _ in range(3)]
+    tid_pair = _pair_tids(tids, region)
+    cost = constant("pair_cost", dev)[(tid_pair * 256 + x * 16 + y).long()]
+    pair_bits = torch.sum(torch.where(valid, cost, 0), dim=-1, dtype=_I32)
+
+    if count1_coding:
+        use2 = (bv2 & 2) == 2
+        quads = _count1_quads((av > 0).to(_I32), use2)
+        patt = quads[..., 0] * 8 + quads[..., 1] * 4 + quads[..., 2] * 2 + quads[..., 3]
+        nsign = torch.sum(quads, dim=-1, dtype=_I32)
+        qpos = torch.arange(0, 576, 4, dtype=_I32, device=dev)
+        start = qpos + torch.where(use2, 2, 0)[..., None]
+        vq = (start >= bv2[..., None]) & (start < (bv2 + 4 * n1)[..., None])
+        len_a = constant("count1a_len", dev)[patt.long()]
+        bits_a = torch.sum(torch.where(vq, len_a + nsign, 0), dim=-1, dtype=_I32)
+        bits_b = torch.sum(torch.where(vq, 4 + nsign, 0), dim=-1, dtype=_I32)
+        c1t = (bits_b < bits_a).to(_I32)
+        c1_bits = torch.minimum(bits_a, bits_b)
+    else:
+        c1t = torch.zeros_like(bv)
+        c1_bits = torch.zeros_like(bv)
+
+    return {
+        "bv": bv.to(_I32),
+        "n1": n1.to(_I32),
+        "c1t": c1t,
+        "tid0": tids[0].to(_I32),
+        "tid1": tids[1].to(_I32),
+        "tid2": tids[2].to(_I32),
+        "r0": r0,
+        "r1": r1,
+        "b0": b0.to(_I32),
+        "b1": b1.to(_I32),
+        "bits": (pair_bits + c1_bits).to(_I32),
+    }
+
+
+def rate_loop_precompute_strict(
+    spectrum: torch.Tensor,
+    init_gain: torch.Tensor,
+    sample_rate: int,
+    is_long: torch.Tensor,
+    iso: bool,
+    count1_coding: bool,
+    region_table_select: bool,
+    mag_scale: torch.Tensor | None = None,
+    part2: torch.Tensor | None = None,
+    block: torch.Tensor | None = None,
+    iso_short: bool = False,
+    b0_switch: torch.Tensor | None = None,
+) -> dict:
+    """The strict-entropy sweep (dsp.py:1604-1736): every one of the 20
+    grid gains priced exactly by strict_layout_device (the reference's
+    STRICT_ANCHORS are all 20, so its interpolation is the identity), one
+    gain at a time. mag_scale/part2 (real_scalefactors): the 2^(0.75 sf)
+    amplification and the scalefactor bits added to every candidate.
+    iso_short: switching granules' magnitudes and signs go to the ISO
+    2.4.3.4.8 stream order first (quantization is pointwise), the sign
+    riding on the magnitude's sign bit through one gather."""
+    absx = torch.clamp(torch.abs(spectrum), min=1e-10)
+    mag = torch.pow(absx, 0.75)
+    if mag_scale is not None:
+        mag = mag * mag_scale
+    sign_neg = spectrum < 0
+    if iso_short:
+        # mag >= 1e-10^0.75 > 0, so the sign round-trips exactly
+        perm = _rate_table("reorder", sample_rate, spectrum.device)[block.long()]
+        signed = torch.gather(torch.where(sign_neg, -mag, mag), -1, perm)
+        mag = torch.abs(signed)
+        sign_neg = signed < 0
+
+    g0 = torch.clamp(init_gain, 0, 255)
+    q0 = quantize_at_gains(mag, sign_neg, g0[..., None], iso=iso)[..., 0, :]
+    allzero0 = _last_nonzero_count(q0) == 0
+    gstart = torch.where(allzero0, torch.clamp(g0 - 40, min=0), g0).to(_I32)
+    k_budget = torch.where(allzero0, N_GAIN_CANDIDATES - 1, N_GAIN_CANDIDATES).to(_I32)
+
+    k = torch.arange(N_GAIN_CANDIDATES, dtype=_I32, device=spectrum.device)
+    inv_table = inv_step_table(iso, spectrum.device)
+    cols = []
+    for a in range(N_GAIN_CANDIDATES):
+        # unsigned quantize (bit counts are sign-invariant): the product and
+        # the sum rounded separately, as the reference
+        inv = inv_table[torch.clamp(gstart + 4 * a, max=255).long()]
+        q_abs = torch.clamp(torch.floor(mag * inv[..., None] + 0.5), max=15.0).to(_I32)
+        lay = strict_layout_device(
+            q_abs, sample_rate, is_long, count1_coding, region_table_select,
+            assume_abs=True, b0_switch=b0_switch,
+        )
+        cols.append(lay["bits"])
+    bits = torch.stack(cols, dim=-1)
+    if part2 is not None:
+        bits = bits + part2[..., None]
+    return {
+        "mag": mag,
+        "sign_neg": sign_neg,
+        "gstart": gstart,
+        "k_budget": k_budget,
+        "bits": bits.to(_I32),
+        "evaluated": (k == 0) | (gstart[..., None] + 4 * k < 255),
+        "iso": iso,
+        "strict": (sample_rate, count1_coding, region_table_select),
+        "is_long": is_long,
+    }
+
+
+def strict_finalize(
+    pre: dict, k_sel: torch.Tensor, has_fit: torch.Tensor, q_fixup=None
+) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Re-quantize at the selected gains and lay them out (dsp.py:1739-1762).
+    Returns (gain_reported, quantized, layout). q_fixup: a callable applied
+    to the selected quantization before the layout (intensity stereo's
+    knife-edge zeroing, ROADMAP Queue 1 item 10)."""
+    sample_rate, count1_coding, region_table_select = pre["strict"]
+    gains_sel = pre["gstart"] + 4 * k_sel
+    q_sel = quantize_at_gains(
+        pre["mag"], pre["sign_neg"], gains_sel[..., None], iso=pre["iso"]
+    )[..., 0, :]
+    if q_fixup is not None:
+        q_sel = q_fixup(q_sel)
+    lay = strict_layout_device(
+        q_sel, sample_rate, pre["is_long"], count1_coding, region_table_select
+    )
+    gain_out = torch.where(has_fit, gains_sel, torch.clamp(gains_sel + 4, max=255))
+    return gain_out.to(_I32), q_sel, lay
+
+
+def strict_chunks_device(q: torch.Tensor, lay: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot (chunk, nbits) of the strict layout (dsp.py:1765-1879):
+    [..., 432] each, 288 pair slots (code, then the signs of nonzero x and
+    y) and 144 count1 quad slots, in write order; nbits 0 outside the coded
+    pairs and the count1 range."""
+    dev = q.device
+    av = torch.clamp(torch.abs(q), max=15)
+    x = av[..., 0::2]
+    y = av[..., 1::2]
+    sx = (q[..., 0::2] < 0).to(_I32)
+    sy = (q[..., 1::2] < 0).to(_I32)
+    bv2 = lay["bv"] * 2
+    pairpos, region = _pair_regions(lay["b0"], lay["b1"])
+    tid_pair = _pair_tids([lay["tid0"], lay["tid1"], lay["tid2"]], region)
+    valid = (pairpos < bv2[..., None]) & (tid_pair != 0)
+    flat = (tid_pair * 256 + x * 16 + y).long()
+    chunk = constant("pair_code", dev)[flat]
+    nbits = constant("pair_len", dev)[flat]
+    has_x = x != 0
+    chunk = torch.where(has_x, (chunk << 1) | sx, chunk)
+    nbits = nbits + has_x.to(_I32)
+    has_y = y != 0
+    chunk = torch.where(has_y, (chunk << 1) | sy, chunk)
+    nbits = nbits + has_y.to(_I32)
+    pair_chunks = torch.where(valid, chunk, 0)
+    pair_nbits = torch.where(valid, nbits, 0)
+
+    use2 = (bv2 & 2) == 2
+    quads = _count1_quads((av > 0).to(_I32), use2)
+    signs = _count1_quads((q < 0).to(_I32), use2)
+    patt = quads[..., 0] * 8 + quads[..., 1] * 4 + quads[..., 2] * 2 + quads[..., 3]
+    use_b = lay["c1t"][..., None] == 1
+    qchunk = torch.where(use_b, 15 - patt, constant("count1a_code", dev)[patt.long()])
+    qnbits = torch.where(use_b, 4, constant("count1a_len", dev)[patt.long()])
+    for p in range(4):
+        has = quads[..., p] == 1
+        qchunk = torch.where(has, (qchunk << 1) | signs[..., p], qchunk)
+        qnbits = qnbits + quads[..., p]
+    qpos = torch.arange(0, 576, 4, dtype=_I32, device=dev)
+    start = qpos + torch.where(use2, 2, 0)[..., None]
+    vq = (start >= bv2[..., None]) & (start < (bv2 + 4 * lay["n1"])[..., None])
+    return (
+        torch.cat([pair_chunks, torch.where(vq, qchunk, 0)], dim=-1).to(_I32),
+        torch.cat([pair_nbits, torch.where(vq, qnbits, 0)], dim=-1).to(_I32),
+    )
+
+
+# --- Real scalefactors (twin of dsp.py:1882-2042 and 2527-2903, MPEG-1) -----------
+
+
+def _exponent(x: torch.Tensor) -> torch.Tensor:
+    """frexp's exponent, int32 (x = m * 2^e with 0.5 <= m < 1; 0 at 0)."""
+    return torch.frexp(x)[1].to(_I32)
+
+
+def _finish(sf_slots: torch.Tensor, n1_slots: int, n2_slots: int) -> dict:
+    """compress/slen/slot_nbits/part2 from slot values (dsp.py:2661-2695):
+    group 1 = the first n1_slots slots (slen1), group 2 the next n2_slots."""
+    dev = sf_slots.device
+    bitlen = constant("sf_bitlen", dev)
+    need1 = bitlen[torch.amax(sf_slots[..., :n1_slots], dim=-1).long()]
+    need2 = bitlen[torch.amax(sf_slots[..., n1_slots : n1_slots + n2_slots], dim=-1).long()]
+    compress = constant("compress_for_need", dev)[(need1 * 5 + need2).long()]
+    slen1 = constant("slen1", dev)[compress.long()]
+    slen2 = constant("slen2", dev)[compress.long()]
+    w = torch.zeros((2, SF_SLOTS), dtype=_I32, device=dev)
+    w[0, :n1_slots] = 1
+    w[1, n1_slots : n1_slots + n2_slots] = 1
+    return {
+        "compress": compress,
+        "slen1": slen1,
+        "slen2": slen2,
+        "slot_nbits": slen1[..., None] * w[0] + slen2[..., None] * w[1],
+        "part2": (n1_slots * slen1 + n2_slots * slen2).to(_I32),
+    }
+
+
+def _mag_scale(sf_slots: torch.Tensor, slot_map: torch.Tensor) -> torch.Tensor:
+    """Per-coefficient 2^(0.75 sf) from slot values [..., 36] through a
+    [576] coefficient -> slot map (SF_SLOTS = no scalefactor, 1.0)."""
+    mult = constant("sf_mult34", sf_slots.device)[sf_slots.long()]
+    ext = torch.cat([mult, torch.ones_like(mult[..., :1])], dim=-1)
+    return ext[..., slot_map]
+
+
+def _pad_slots(sf: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.pad(sf, (0, SF_SLOTS - sf.shape[-1]))
+
+
+def _long_finish(sf: torch.Tensor, sample_rate: int) -> dict:
+    """The long layout from its 21 band scalefactors (dsp.py:1951-1997 and
+    2857-2882): sf, the bands in slots 0-20 of sf_slots, slot_nbits,
+    compress, slen1, slen2, part2 and mag_scale."""
+    sf_slots = _pad_slots(sf)
+    slot_map = _rate_table("slot_maps", sample_rate, sf.device)[0]
+    return {
+        "sf": sf,
+        "sf_slots": sf_slots,
+        **_finish(sf_slots, 11, 10),
+        "mag_scale": _mag_scale(sf_slots, slot_map),
+    }
+
+
+def strict_scalefactors_device(
+    spectrum: torch.Tensor, sample_rate: int, is_long: torch.Tensor
+) -> dict:
+    """Long-block scalefactors by the exponent-difference law (dsp.py:
+    1918-1948): sf_b = clip((e(global peak) - e(band peak)) // 3, 0, cap),
+    cap 15 for bands 0-10 and 7 above, zero where not long. Returns the
+    long layout of _long_finish (sf [..., 21], mag_scale [..., 576], ...)."""
+    lb = _long_bounds(sample_rate)
+    absx = torch.abs(spectrum)
+    gp = torch.amax(absx, dim=-1)
+    ge = _exponent(gp)
+    pb = torch.stack(
+        [torch.amax(absx[..., int(lb[b]) : int(lb[b + 1])], dim=-1) for b in range(21)], dim=-1
+    )
+    caps = torch.tensor([15] * 11 + [7] * 10, dtype=_I32, device=spectrum.device)
+    sf = torch.minimum(torch.clamp((ge[..., None] - _exponent(pb)) // 3, min=0), caps)
+    keep = (pb > 0) & ((gp > 0) & is_long)[..., None]
+    return _long_finish(torch.where(keep, sf, 0).to(_I32), sample_rate)
+
+
+def psy_scalefactors_device(
+    spectrum: torch.Tensor, sample_rate: int, is_long: torch.Tensor
+) -> dict:
+    """Masking-driven scalefactors (options.psy_scalefactors, dsp.py:
+    2007-2042): band peak exponents spread by max-plus scans PSY_SLOPE per
+    band, half the gap to the loudest mask turned into amplification. All
+    integer arithmetic on frexp exponents."""
+    lb = _long_bounds(sample_rate)
+    absx = torch.abs(spectrum)
+    gp = torch.amax(absx, dim=-1)
+    ge = _exponent(gp)
+    EMPTY = -(1 << 14)
+    pes = []
+    for b in range(21):
+        pb = torch.amax(absx[..., int(lb[b]) : int(lb[b + 1])], dim=-1)
+        pes.append(torch.where(pb > 0, _exponent(pb), EMPTY))
+    Ms = list(pes)
+    for b in range(1, 21):
+        Ms[b] = torch.maximum(Ms[b], Ms[b - 1] - PSY_SLOPE)
+    for b in range(19, -1, -1):
+        Ms[b] = torch.maximum(Ms[b], Ms[b + 1] - PSY_SLOPE)
+    M = torch.stack(Ms, dim=-1)
+    pe = torch.stack(pes, dim=-1)
+    gap = torch.amax(M, dim=-1, keepdim=True) - M
+    v = (PSY_ALPHA_NUM * gap) // PSY_ALPHA_DEN
+    v = torch.minimum(v, torch.clamp(ge[..., None] - pe, min=0))
+    caps = torch.tensor([15] * 11 + [7] * 10, dtype=_I32, device=spectrum.device)
+    sf = torch.minimum(torch.clamp(v, min=0), caps)
+    sf = torch.where(pe == EMPTY, 0, sf)
+    sf = torch.where(((gp > 0) & is_long)[..., None], sf, 0).to(_I32)
+    return _long_finish(sf, sample_rate)
+
+
+def masking_thresholds(spectrum: torch.Tensor, sample_rate: int, quality: int) -> torch.Tensor:
+    """Per-band mean energy x the quality scale, floor 1e-4, spread back to
+    the band's coefficients; 1e-4 past the last band (dsp.py:1155-1182).
+    The reference computes it and never reads it; no chunk program calls it."""
+    lb = _long_bounds(sample_rate)
+    scale = float(np.float32(max(0.1, (10 - quality) / 10.0)))
+    e = spectrum * spectrum
+    parts = []
+    for b in range(21):
+        lo, hi = int(lb[b]), int(lb[b + 1])
+        avg = torch.sum(e[..., lo:hi], dim=-1, keepdim=True) / float(hi - lo)
+        parts.append(torch.clamp(avg * scale, min=1e-4).expand(*e.shape[:-1], hi - lo))
+    tail = (*e.shape[:-1], 576 - int(lb[21]))
+    parts.append(torch.full(tail, 1e-4, dtype=e.dtype, device=e.device))
+    return torch.cat(parts, dim=-1)
+
+
+def _switching_sfd_device(spectrum: torch.Tensor, sample_rate: int, mixed: bool) -> dict:
+    """Short or mixed scalefactors for every granule (dsp.py:2735-2830,
+    MPEG-1): per (short band, window) slot sf = clip((ge - pe) // 3, 0, cap),
+    cap 15 for short bands 0-5 and 7 above; mixed granules carry the long
+    head's 8 band scalefactors (cap 15) in slots 0-7 and short bands 3-11."""
+    sb = [int(v) for v in short_band_bounds(sample_rate)]
+    lead = spectrum.shape[:-1]
+    absx = torch.abs(spectrum)
+    gp = torch.amax(absx, dim=-1)
+    ge = _exponent(gp)
+    live = gp > 0
+    X3 = absx.reshape(*lead, 192, 3)
+    parts = []
+    if mixed:
+        lb = _long_bounds(sample_rate)
+        pb = torch.stack(
+            [torch.amax(absx[..., int(lb[b]) : int(lb[b + 1])], dim=-1) for b in range(8)], dim=-1
+        )
+        sf = torch.clamp((ge[..., None] - _exponent(pb)) // 3, 0, 15)
+        parts.append(torch.where((pb > 0) & live[..., None], sf, 0))
+    for s in range(3 if mixed else 0, 12):
+        pb = torch.amax(X3[..., sb[s] : sb[s + 1], :], dim=-2)  # [..., 3] by window
+        sf = torch.clamp((ge[..., None] - _exponent(pb)) // 3, 0, 15 if s < 6 else 7)
+        parts.append(torch.where((pb > 0) & live[..., None], sf, 0))
+    sf_slots = _pad_slots(torch.cat(parts, dim=-1).to(_I32))
+    fin = _finish(sf_slots, 17 if mixed else 18, 18)
+    slot_map = _rate_table("slot_maps", sample_rate, spectrum.device)[1 if mixed else 2]
+    return {"sf_slots": sf_slots, "mag_scale": _mag_scale(sf_slots, slot_map), **fin}
+
+
+def granule_scalefactors_device(
+    spectrum: torch.Tensor,
+    sample_rate: int,
+    block: torch.Tensor,
+    psy: bool = False,
+    iso_short: bool = False,
+) -> dict:
+    """Per-granule scalefactors by block type (dsp.py:2833-2903, MPEG-1).
+    spectrum [..., 576] natural order; block [...] int32. Returns sf [..., 21]
+    (long bands; zeros for switching granules, the scfsi input), sf_slots
+    and slot_nbits [..., 36], compress/slen1/slen2/part2 [...] and mag_scale
+    [..., 576]. Without iso_short, switching granules carry no scalefactors."""
+    is_long = block == BLOCK_LONG
+    law = psy_scalefactors_device if psy else strict_scalefactors_device
+    out = law(spectrum, sample_rate, is_long)
+    if not iso_short:
+        return out
+    ssfd = _switching_sfd_device(spectrum, sample_rate, mixed=False)
+    msfd = _switching_sfd_device(spectrum, sample_rate, mixed=True)
+    is_mixed = block == BLOCK_MIXED
+    for name in ("sf_slots", "slot_nbits", "compress", "slen1", "slen2", "part2", "mag_scale"):
+        extra = ssfd[name].dim() - is_long.dim()
+        il = is_long.reshape(is_long.shape + (1,) * extra)
+        im = is_mixed.reshape(is_mixed.shape + (1,) * extra)
+        out[name] = torch.where(il, out[name], torch.where(im, msfd[name], ssfd[name]))
+    return out
+
+
+def initial_gain_scaled(
+    spectrum: torch.Tensor, mag_scale: torch.Tensor, target: float = 15.0
+) -> torch.Tensor:
+    """ISO-law initial gain from scalefactor-amplified magnitudes
+    (dsp.py:2527-2541)."""
+    mag = torch.pow(torch.clamp(torch.abs(spectrum), min=1e-10), 0.75) * mag_scale
+    ratio = torch.amax(mag, dim=-1) / float(np.float32(target))
+    safe_ratio = torch.clamp(ratio, min=1e-30)
+    mult = float(np.float32(16.0 / 3.0))
+    gain = torch.clamp(210 + torch.trunc(mult * torch.log2(safe_ratio)).to(_I32), 0, 255)
+    raw_peak = torch.amax(torch.abs(spectrum), dim=-1)
+    return torch.where(raw_peak > 0, gain, 210).to(_I32)
+
+
+def _write_slots_device(write: torch.Tensor) -> torch.Tensor:
+    """A [..., 21] long-band write mask extended to the 36 slots (dsp.py:
+    2547-2552); switching granules never share."""
+    return torch.nn.functional.pad(write, (0, SF_SLOTS - write.shape[-1]), value=True)
+
+
+def scalefactor_chunks_device(
+    sfd: dict, write: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(chunks, nbits) of the 36 scalefactor slots a granule, ISO 2.4.2.7
+    transmission order (dsp.py:2555-2564); `write` [..., 21] masks the
+    scfsi-shared long bands to zero width."""
+    nbits = sfd["slot_nbits"]
+    if write is not None:
+        nbits = torch.where(_write_slots_device(write), nbits, 0)
+    return sfd["sf_slots"], nbits.to(_I32)
+
+
+def scfsi_device(sf: torch.Tensor, is_long: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """scfsi over a frame's granule pair (dsp.py:2571-2588). sf [..., 2, 21]
+    (granule axis second to last), is_long [..., 2]. Returns (the four
+    side-info bits packed MSB first [...] int32, write [..., 2, 21]: granule
+    1's shared bands False)."""
+    sf0, sf1 = sf[..., 0, :], sf[..., 1, :]
+    both_long = is_long[..., 0] & is_long[..., 1]
+    write1 = torch.ones(sf1.shape, dtype=torch.bool, device=sf.device)
+    nibble = torch.zeros(both_long.shape, dtype=_I32, device=sf.device)
+    for g, (lo, hi) in enumerate(SCFSI_GROUPS):
+        shared = torch.all(sf0[..., lo:hi] == sf1[..., lo:hi], dim=-1) & both_long
+        nibble = nibble + (shared.to(_I32) << (3 - g))
+        write1[..., lo:hi] &= ~shared[..., None]
+    return nibble, torch.stack([torch.ones_like(write1), write1], dim=-2)
+
+
+def scfsi_part2_device(sfd: dict, write: torch.Tensor) -> torch.Tensor:
+    """part2 bits a granule when only the `write` bands are emitted
+    (dsp.py:2591-2595)."""
+    nbits = torch.where(_write_slots_device(write), sfd["slot_nbits"], 0)
+    return torch.sum(nbits, dim=-1, dtype=_I32)

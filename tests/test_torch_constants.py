@@ -39,9 +39,14 @@ def test_polyphase_fold(d):
     assert _bits_equal(tdsp.POLY_FOLD[d], jdsp._POLY_FOLD[d])
 
 
-@pytest.mark.parametrize("law", ["p", "c"])
+@pytest.mark.parametrize("law", ["p", "c", "p_iso", "c_iso"])
 def test_mdct_fold(law):
-    port = {"p": tdsp.MDCT_FOLD_P, "c": tdsp.MDCT_FOLD_C}[law]
+    port = {
+        "p": tdsp.MDCT_FOLD_P,
+        "c": tdsp.MDCT_FOLD_C,
+        "p_iso": tdsp.MDCT_FOLD_P_ISO,
+        "c_iso": tdsp.MDCT_FOLD_C_ISO,
+    }[law]
     assert _bits_equal(port, jdsp._MDCT_FOLD[law])
 
 
@@ -77,7 +82,10 @@ def test_region_bounds(sr):
 
 @pytest.mark.parametrize(
     "name",
-    ["window_rev", "matrix_rev_t", "poly_fold", "mdct_p", "mdct_c", "sign_flat", "inv_step", "t15_code"],
+    [
+        "window_rev", "matrix_rev_t", "poly_fold", "mdct_p", "mdct_c", "sign_flat", "inv_step",
+        "t15_code", "mdct_p_iso", "mdct_c_iso", "pair_cost", "pair_code", "sf_mult34",
+    ],
 )
 def test_device_constants_keep_their_bits(name):
     t = tdsp.constant(name, torch.device("cpu"))

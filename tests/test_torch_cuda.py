@@ -1,6 +1,7 @@
 """Card-only tests of the port: the hand-written CUDA kernels against their
-plain PyTorch versions, and the port's entry points on a CUDA device against
-the same entry points on the CPU.
+plain PyTorch versions (K2 also at the strict path's shapes and against the
+host packer on strict frames), and the port's entry points on a CUDA device
+against the same entry points on the CPU, compat and spec_strict.
 
 Every test here needs a CUDA card and skips without one (the kernels have no
 CPU mode). The file imports nothing of JAX and nothing of the JAX package, so
@@ -14,22 +15,33 @@ import pytest
 import torch
 
 from swiftmp3_tpu_torch.encoder import new_session
+from swiftmp3_tpu_torch.io.huffman_pack import pack_chunks
 from swiftmp3_tpu_torch.ops import dsp, kernels
 from swiftmp3_tpu_torch.options import MP3EncoderOptions
 from swiftmp3_tpu_torch.parallel.batch import encode_batch
 
 from .torch_inputs import (
     COMPAT_FIXTURES,
+    STRICT_FIXTURES,
+    STRICT_OPTIONS,
     fixture_path,
     knife_edge_sweep_input,
     make_signal,
     pack_input,
+    strict_pack_input,
     sweep_input,
 )
 
 pytestmark = pytest.mark.cuda
 
-PACK_SHAPES = [(16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160), (2048, 1152, 894)]
+# the last two: the strict path's slots a frame, stereo and mono
+PACK_SHAPES = [
+    (16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160), (2048, 1152, 894),
+    (2048, 1872, 894), (2048, 936, 910),
+]
+# frames whose bytes may differ between the card and the CPU: a float ULP in
+# the matmul or reduction order can move a quantization knife edge
+STRICT_CARD_FLIP_CEILING = 2
 # (rows, T): the session chunk, 36T below one 256-position tile, a batch
 # chunk, two shapes with a ragged last tile (180 positions; 1044 = 4 tiles +
 # 20), and one whose blocks walk 2 tiles and 1 ragged tile (540 positions);
@@ -123,6 +135,53 @@ def test_polyphase_kernel_matches_plain(cuda_device, rows, T):
     assert torch.equal(x, x_p)
     S_m, _ = dsp.polyphase_chunk_matmul(hist, pcm)
     assert float((S - S_m).abs().max()) <= K3_TOLERANCE
+
+
+@pytest.mark.parametrize("mode", ["joint_stereo", "mono"])
+def test_pack_kernel_matches_the_host_packer_on_strict_frames(cuda_device, mode):
+    chunks, nbits, cap = strict_pack_input(cuda_device, B=8, T=4, mode=mode)
+    assert chunks.shape[1] == (1872 if mode == "joint_stereo" else 936)
+    by, total = kernels.pack(chunks, nbits, cap)
+    pby, ptot = kernels.pack_plain(chunks, nbits, cap)
+    assert torch.equal(by, pby) and torch.equal(total, ptot)
+    c, n, by = chunks.cpu().numpy(), nbits.cpu().numpy(), by.cpu().numpy()
+    assert (n[:, :36] > 0).any()
+    for f in range(c.shape[0]):
+        live = n[f] > 0
+        host, bits = pack_chunks(c[f][live].astype(np.int64), n[f][live].astype(np.int64))
+        assert int(total[f]) == bits and by[f, : len(host)].tobytes() == host
+
+
+def _flips(got: bytes, ref: bytes) -> int:
+    from .util import parse_frames
+
+    fg, fr = parse_frames(got), parse_frames(ref)
+    assert [f.size for f in fg] == [f.size for f in fr]
+    return sum(
+        got[a.offset : a.offset + a.size] != ref[b.offset : b.offset + b.size]
+        for a, b in zip(fg, fr)
+    )
+
+
+@pytest.mark.parametrize("row", STRICT_FIXTURES, ids=[f[0] for f in STRICT_FIXTURES])
+def test_strict_session_on_the_card_matches_the_cpu(cuda_device, row):
+    name, kw, kind, seconds, seed = row
+    o = MP3EncoderOptions(**kw)
+    pcm = make_signal(kind, seconds, o.sample_rate, o.channels, seed)
+    s = new_session(o)
+    got = s.encode(pcm) + s.flush()
+    s = new_session(o, "cpu")
+    assert _flips(got, s.encode(pcm) + s.flush()) <= STRICT_CARD_FLIP_CEILING
+
+
+def test_strict_batch_on_the_card_matches_cpu_sessions(cuda_device):
+    o = MP3EncoderOptions.spec_strict(**STRICT_OPTIONS)
+    base = make_signal("burst", 0.5, 44100, 2, 32)
+    streams = [base, base[: 2 * 1152 * 9 + 10], base[::-1].copy()]
+    got = encode_batch(o, streams, frames_per_step=8)
+    for pcm, data in zip(streams, got):
+        s = new_session(o, "cpu")
+        assert _flips(data, s.encode(pcm) + s.flush()) <= STRICT_CARD_FLIP_CEILING
 
 
 def test_session_on_the_card_matches_the_fixture(cuda_device):

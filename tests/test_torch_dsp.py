@@ -53,6 +53,24 @@ def test_stereo_decide_compat_law():
     assert np.array_equal(c1_t.numpy(), np.asarray(c1_j))
 
 
+@pytest.mark.parametrize("iso_matrix,symmetric", [(True, False), (True, True), (False, True)])
+def test_stereo_decide_iso_laws(iso_matrix, symmetric):
+    """The sqrt(2) matrix and the symmetric arm (anti-correlated frames go
+    M/S too): decision and channels equal to the JAX op's."""
+    rng = np.random.default_rng(14)
+    left = rng.standard_normal((3, 6, 1152)).astype(np.float32)
+    right = left * rng.uniform(0.2, 1.0, (3, 6, 1)).astype(np.float32)
+    right[:, ::3] = rng.standard_normal((3, 2, 1152))  # decorrelated frames
+    right[:, 1::3] *= -1.0  # anti-correlated frames
+    kw = dict(iso_matrix=iso_matrix, symmetric=symmetric)
+    use_j, c0_j, c1_j = jdsp.stereo_decide(jnp.asarray(left), jnp.asarray(right), **kw)
+    use_t, c0_t, c1_t = tdsp.stereo_decide(_t(left), _t(right), **kw)
+    assert np.array_equal(use_t.numpy(), np.asarray(use_j))
+    assert use_t.any() and not use_t.all()
+    assert np.array_equal(c0_t.numpy(), np.asarray(c0_j))
+    assert np.array_equal(c1_t.numpy(), np.asarray(c1_j))
+
+
 @pytest.mark.parametrize("T", [2, 4])
 def test_polyphase_chunk_matmul(T):
     rng = np.random.default_rng(3)
@@ -93,6 +111,28 @@ def test_mdct_chunk_compat():
     out_j = np.asarray(out_j)
     scale = max(float(np.abs(out_j).max()), 1.0)
     assert float(np.abs(out_t.numpy() - out_j).max()) <= 1e-5 * scale
+
+
+def test_mdct_chunk_iso_mixed_alias():
+    """The mixed granules' long head with the subband 0/1 butterfly
+    (options.iso_short_blocks); the JAX tests' MDCT tolerance."""
+    rng = np.random.default_rng(15)
+    T = 3
+    S = rng.standard_normal((2, 2, 36 * T, 32)).astype(np.float32)
+    ov = rng.standard_normal((2, 2, 576)).astype(np.float32)
+    bt = rng.choice([0, 1, 2], (2, 2, 2 * T)).astype(np.int32)
+    out_j, cur_j = jdsp.mdct_chunk(
+        jnp.asarray(S), jnp.asarray(ov), jnp.asarray(bt), iso_mixed_alias=True
+    )
+    out_t, cur_t = tdsp.mdct_chunk(_t(S), _t(ov), _t(bt), iso_mixed_alias=True)
+    assert np.array_equal(cur_t.numpy(), np.asarray(cur_j))
+    out_j = np.asarray(out_j)
+    scale = max(float(np.abs(out_j).max()), 1.0)
+    assert float(np.abs(out_t.numpy() - out_j).max()) <= 1e-5 * scale
+    compat, _ = tdsp.mdct_chunk(_t(S), _t(ov), _t(bt))
+    mixed = bt == 1
+    assert not torch.equal(out_t[mixed][..., :36], compat[mixed][..., :36])
+    assert torch.equal(out_t[~mixed], compat[~mixed])
 
 
 @pytest.mark.parametrize("iso", [False, True])

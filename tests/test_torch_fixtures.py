@@ -7,10 +7,12 @@ and their golden streams from files under `tests/fixtures/torch/`. Here:
 
 - the signal copies (`make_signal`, `corpus_stereo`) equal the originals
   (`tests/fixture_lib.py`, `tests/test_ulp_telemetry.py`), array for array;
-- the 8 compat rows equal the compat rows of `fixture_lib.FIXTURES`;
+- the 8 compat and 4 strict rows equal the rows of `fixture_lib.FIXTURES`;
 - each frozen stream is what the golden numpy backend
   (`EncoderSession(options, backend="numpy")`) encodes from its input today,
-  byte for byte, so the files stay pinned to the reference.
+  byte for byte, so the files stay pinned to the reference: under the main
+  path's compat options and under the spec_strict preset
+  (`torch_inputs.STRICT_OPTIONS`).
 
 Regenerate the frozen streams with `python -m tests.test_torch_fixtures`.
 """
@@ -24,7 +26,7 @@ import numpy as np
 import pytest
 
 from swiftmp3_tpu.encoder import EncoderSession
-from swiftmp3_tpu.options import MP3EncoderOptions
+from swiftmp3_tpu.options import MP3EncoderOptions, Mode
 
 from . import fixture_lib
 from . import torch_inputs as ti
@@ -40,8 +42,15 @@ def _golden_inputs() -> dict:
     return ti.golden_streams()
 
 
-def _golden_encode(pcm: np.ndarray) -> bytes:
-    s = EncoderSession(MP3EncoderOptions(**ti.MAIN_OPTIONS), backend="numpy")
+def _golden_options(preset: str) -> MP3EncoderOptions:
+    if preset == "strict":
+        kw = dict(ti.STRICT_OPTIONS, mode=Mode(ti.STRICT_OPTIONS["mode"]))
+        return MP3EncoderOptions.spec_strict(**kw)
+    return MP3EncoderOptions(**ti.MAIN_OPTIONS)
+
+
+def _golden_encode(pcm: np.ndarray, preset: str = "compat") -> bytes:
+    s = EncoderSession(_golden_options(preset), backend="numpy")
     return s.encode(pcm) + s.flush()
 
 
@@ -52,6 +61,15 @@ def test_make_signal_copy_equals_fixture_lib(row):
     want = fixture_lib.make_signal(kind, seconds, o.sample_rate, o.channels, seed)
     got = ti.make_signal(kind, seconds, o.sample_rate, o.channels, seed)
     assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_strict_rows_equal_fixture_lib():
+    ref = [f for f in fixture_lib.FIXTURES if MP3EncoderOptions(**f[1]).spec_strict_entropy]
+    assert [r[0] for r in ti.STRICT_FIXTURES] == [r[0] for r in ref]
+    for (name, kw, *rest), (_, ref_kw, *ref_rest) in zip(ti.STRICT_FIXTURES, ref):
+        assert rest == ref_rest, name
+        assert MP3EncoderOptions(**kw) == MP3EncoderOptions(**ref_kw), name
+        assert ti.fixture_path(name, "tpu") == fixture_lib.fixture_path(name, "tpu")
 
 
 def test_compat_rows_equal_fixture_lib():
@@ -76,7 +94,8 @@ def test_golden_inputs_cover_the_frozen_files():
     main = _golden_inputs()["main_stream0"]
     assert main.dtype == np.int16 and main.shape == (ti.T_MAIN * 2304,)
     frozen = sorted(os.listdir(ti.TORCH_FIXTURE_DIR))
-    assert frozen == sorted(f"golden_{s}.mp3" for s in GOLDEN_STEMS)
+    want = [os.path.basename(ti.golden_path(s, p)) for p in ("compat", "strict") for s in GOLDEN_STEMS]
+    assert frozen == sorted(want)
 
 
 @pytest.mark.parametrize("stem", GOLDEN_STEMS)
@@ -85,10 +104,24 @@ def test_frozen_golden_stream_is_the_golden_encoders(stem):
         assert fh.read() == _golden_encode(_golden_inputs()[stem])
 
 
+@pytest.mark.parametrize("stem", GOLDEN_STEMS)
+def test_frozen_strict_golden_stream_is_the_golden_encoders(stem):
+    with open(ti.golden_path(stem, "strict"), "rb") as fh:
+        assert fh.read() == _golden_encode(_golden_inputs()[stem], "strict")
+
+
+def test_strict_options_are_the_telemetry_preset():
+    from .test_ulp_telemetry import _CONFIGS
+
+    want = {name: make for name, _, make, _ in _CONFIGS}["strict"]()
+    assert _golden_options("strict") == want
+
+
 if __name__ == "__main__":
     os.makedirs(ti.TORCH_FIXTURE_DIR, exist_ok=True)
-    for stem, pcm in _golden_inputs().items():
-        data = _golden_encode(pcm)
-        with open(ti.golden_path(stem), "wb") as fh:
-            fh.write(data)
-        print(f"wrote {ti.golden_path(stem)} ({len(data)} bytes)")
+    for preset in ("compat", "strict"):
+        for stem, pcm in _golden_inputs().items():
+            data = _golden_encode(pcm, preset)
+            with open(ti.golden_path(stem, preset), "wb") as fh:
+                fh.write(data)
+            print(f"wrote {ti.golden_path(stem, preset)} ({len(data)} bytes)")

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from swiftmp3_tpu.io.huffman_pack import pack_frame_main_data
+from swiftmp3_tpu.io.huffman_pack import pack_chunks, pack_frame_main_data
 from swiftmp3_tpu.ops import dsp as jdsp
 from swiftmp3_tpu.ops import pallas_kernels as pk
 from swiftmp3_tpu_torch.ops import dsp as tdsp
@@ -27,12 +27,17 @@ from .torch_inputs import (
     knife_edge_sweep_input,
     pack_input,
     polyphase_input,
+    strict_pack_input,
     sweep_input,
 )
 
 torch.set_num_threads(1)
 
-PACK_SHAPES = [(16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160)]
+# ... and the strict path's slots a frame: 1872 in stereo, 936 in mono
+PACK_SHAPES = [
+    (16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160),
+    (4, 1872, 894), (4, 936, 910),
+]
 K3_TOLERANCE = 2e-5  # tests/test_pallas.py
 NO_LAUNCHES = {"rate_sweep": 0, "pack": 0, "polyphase": 0}
 
@@ -157,6 +162,21 @@ def test_pack_plain_matches_host_packer():
         host_bytes, part_bits = pack_frame_main_data(q[f], bv[f])
         assert int(total[f]) == part_bits.sum()
         assert by[f, : len(host_bytes)].numpy().tobytes() == host_bytes
+
+
+@pytest.mark.parametrize("mode", ["joint_stereo", "mono"])
+def test_pack_plain_matches_host_packer_on_strict_frames(mode):
+    """The strict chunk program's frames (scalefactor slots, then pair and
+    quad slots a granule) pack as the reference's host packer packs them."""
+    chunks, nbits, cap = strict_pack_input(torch.device("cpu"), mode=mode)
+    assert chunks.shape[1] == (1872 if mode == "joint_stereo" else 936)
+    by, total = kernels.pack(chunks, nbits, cap)
+    c, n = chunks.numpy(), nbits.numpy()
+    assert (n[:, :36] > 0).any()  # scalefactor slots lead granule 0
+    for f in range(c.shape[0]):
+        live = n[f] > 0
+        host, bits = pack_chunks(c[f][live].astype(np.int64), n[f][live].astype(np.int64))
+        assert int(total[f]) == bits and by[f, : len(host)].numpy().tobytes() == host
 
 
 def test_pack_plain_truncates_at_cap_like_xla():

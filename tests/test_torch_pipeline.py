@@ -249,13 +249,20 @@ def test_carry_from_jax_conversions():
         tpipe.carry_from_jax({**state, "seq_prev_short": np.zeros(2, bool)}, CPU)
 
 
+# the spec_strict flags the options validation asks the later items' flags for
+_STRICT_FLAGS = dict(
+    reservoir_mode="aligned", iso_quantization=True, count1_coding=True,
+    region_table_select=True, real_scalefactors=True, iso_short_blocks=True,
+)
+
+
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(count1_coding=True),
-        dict(iso_quantization=True, real_scalefactors=True),
-        dict(iso_ms_matrix=True),
-        dict(iso_mode_ext=True),
+        dict(linbits_tables=True, **_STRICT_FLAGS),
+        dict(window_sequencing=True, **_STRICT_FLAGS),
+        dict(distortion_control=True, linbits_tables=True, **_STRICT_FLAGS),
+        dict(intensity_stereo=True, mode="joint_stereo", iso_mode_ext=True, **_STRICT_FLAGS),
         dict(lowpass_hz=10000),
         dict(reservoir_mode="aligned", reservoir_depth=2),
         dict(free_format=True, bitrate_kbps=100),

@@ -1,10 +1,10 @@
 """Inputs shared by the port's tests and `chip_smoke.py` (numpy only, made
-from seeds).
+from seeds; `strict_pack_input` alone runs the port, imported inside it).
 
 Besides the kernel inputs, this module holds numpy-only copies of the
 reference tests' signal makers and option rows, so that code which must not
 import the JAX package (`chip_smoke.py`, `tools/torch_profile_step.py`)
-builds the same inputs: `make_signal` and the 8 compat rows of
+builds the same inputs: `make_signal` and the 8 compat and 4 strict rows of
 `tests/fixture_lib.py`, `corpus_stereo` (`tests/test_ulp_telemetry.py`), and
 the bench audio of the main path. `tests/test_torch_fixtures.py` holds each
 copy equal to its original. Option keyword arguments name the channel mode
@@ -25,6 +25,9 @@ TORCH_FIXTURE_DIR = os.path.join(FIXTURE_DIR, "torch")
 # default options, 128 kbps CBR stereo 44.1 kHz, 256 streams x 128 frames.
 MAIN_OPTIONS = dict(mode="stereo", bitrate_kbps=128, sample_rate=44100)
 B_MAIN, T_MAIN = 256, 128
+# The strict main path: MP3EncoderOptions.spec_strict(**STRICT_OPTIONS), the
+# configuration tests/test_ulp_telemetry.py pins for the preset.
+STRICT_OPTIONS = dict(mode="joint_stereo", bitrate_kbps=128, sample_rate=44100)
 
 
 def sweep_input(n: int = 37, seed: int = 7):
@@ -49,6 +52,44 @@ def pack_input(F: int, P: int, cap: int, seed: int = 7, overflow: bool = False):
         nb = np.where(rng.random((F, P)) < scale, nb, 0)
     ch = (rng.integers(0, 1 << 15, size=(F, P)) & ((1 << nb) - 1)).astype(np.int32)
     return ch, nb
+
+
+def strict_pack_input(device, B: int = 2, T: int = 2, seed: int = 0, mode: str = "joint_stereo"):
+    """The main_data pack's input on the strict path: the (chunks, nbits)
+    [B*T, P] the port's spec_strict chunk program hands `kernels.pack`
+    (36 scalefactor slots, 288 pair and 144 quad slots a granule, so
+    P = 1872 in stereo and 936 in mono), and the cap, for B streams of T
+    frames of correlated noise with attacks on `device`."""
+    import torch
+
+    from swiftmp3_tpu_torch.models import pipeline
+    from swiftmp3_tpu_torch.ops import kernels
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+
+    o = MP3EncoderOptions.spec_strict(**dict(STRICT_OPTIONS, mode=mode))
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T * 1152 * o.channels)).astype(np.float32) * 0.2
+    for i in range(1, 5):
+        x[:, i:] += x[:, :-i] / (i + 1)
+    x[:, 700:800] *= 20.0  # attacks: short granules and their scalefactors
+    seen = []
+    pack = kernels.pack
+
+    def record(chunks, nbits, cap):
+        seen.append((chunks.clone(), nbits.clone(), cap))
+        return pack(chunks, nbits, cap)
+
+    kernels.pack = record
+    try:
+        pipeline.make_chunk_fn(o)(
+            pipeline.init_carry(B, o, device),
+            torch.from_numpy(x.reshape(B, T, -1)).to(device),
+            torch.zeros((B, T), dtype=torch.bool, device=device),
+            torch.ones((B, T), dtype=torch.bool, device=device),
+        )
+    finally:
+        kernels.pack = pack
+    return seen[0]
 
 
 def polyphase_input(B: int = 3, ch: int = 2, T: int = 8, seed: int = 0):
@@ -197,6 +238,61 @@ COMPAT_FIXTURES = [
 ]
 
 
+_STRICT_FLAGS = dict(
+    reservoir_mode="aligned",
+    iso_quantization=True,
+    count1_coding=True,
+    region_table_select=True,
+    real_scalefactors=True,
+)
+
+# The 4 strict rows of tests/fixture_lib.FIXTURES, in its order.
+STRICT_FIXTURES = [
+    (
+        "strict_full_mono_44k_noise",
+        dict(mode="mono", iso_crc=True, crc_protected=True, **_STRICT_FLAGS),
+        "noise",
+        0.40,
+        9,
+    ),
+    (
+        "strict_full_stereo_48k_mix",
+        dict(
+            mode="stereo",
+            sample_rate=48000,
+            bitrate_kbps=160,
+            iso_crc=True,
+            crc_protected=True,
+            **_STRICT_FLAGS,
+        ),
+        "mix",
+        0.37,
+        10,
+    ),
+    (
+        "strict_shortblocks_mono_44k_burst",
+        dict(mode="mono", iso_short_blocks=True, **_STRICT_FLAGS),
+        "burst",
+        0.42,
+        11,
+    ),
+    (
+        "strict_msmatrix_joint_48k_burst",
+        dict(
+            mode="joint_stereo",
+            sample_rate=48000,
+            iso_short_blocks=True,
+            iso_mode_ext=True,
+            iso_ms_matrix=True,
+            **_STRICT_FLAGS,
+        ),
+        "burst",
+        0.40,
+        12,
+    ),
+]
+
+
 def fixture_path(name: str, backend: str) -> str:
     """A committed reference stream, tests/fixtures/<name>.<backend>.mp3."""
     return os.path.join(FIXTURE_DIR, f"{name}.{backend}.mp3")
@@ -283,5 +379,8 @@ def golden_streams(main_audio: np.ndarray = None) -> dict:
     return out
 
 
-def golden_path(stem: str) -> str:
-    return os.path.join(TORCH_FIXTURE_DIR, f"golden_{stem}.mp3")
+def golden_path(stem: str, preset: str = "compat") -> str:
+    """The frozen golden stream of `stem`: under MAIN_OPTIONS (preset
+    "compat") or MP3EncoderOptions.spec_strict(**STRICT_OPTIONS) ("strict")."""
+    prefix = "golden_" if preset == "compat" else f"golden_{preset}_"
+    return os.path.join(TORCH_FIXTURE_DIR, f"{prefix}{stem}.mp3")

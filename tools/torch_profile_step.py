@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
 """Where a step of the PyTorch port's main path spends its time, on one GPU.
 
-    python3 tools/torch_profile_step.py
+    python3 tools/torch_profile_step.py            # the compat main path
+    python3 tools/torch_profile_step.py --strict   # the spec_strict path
 
 Runs the port's BatchEncoder at the main path's shape (256 streams x 128
-frames, 128 kbps CBR stereo 44.1 kHz, bench audio) for two warm-up steps,
-then:
+frames, bench audio; 128 kbps CBR stereo 44.1 kHz, or with --strict
+MP3EncoderOptions.spec_strict(joint stereo, 128 kbps, 44.1 kHz)) for two
+warm-up steps, then:
 
   1. phase wall times of one step, with a device synchronise at each phase
-     boundary: phase 1 up to and including the rate sweep, the integer loop
-     over T, and phase 3 (finalize, pack, output assembly, carry-out);
-  2. torch.profiler over one more step: device time by kernel, the number
+     boundary. Compat: phase 1 up to and including the rate sweep, the
+     integer loop over T, and phase 3 (finalize, pack, output assembly,
+     carry-out). Strict: phase 1 up to the scalefactors, the scalefactors
+     and gains, the strict sweep (and the share of it inside the entropy
+     layout), the loop over T, finalize, the second loop and the chunks,
+     the pack, and the output assembly;
+  2. (strict) CUDA-event device times of the strict sweep and of one
+     entropy layout on that step's own inputs;
+  3. torch.profiler over one more step: device time by kernel, the number
      of kernel launches, and the device's busy share of the step;
-  3. the filterbank stage (the counterpart of tools/profile_step.py's): on
-     that step's own chunk and history, CUDA-event times of the plain
-     stepwise filterbank, the production folded matmul, the K3 kernel
-     (`ops/csrc/polyphase.cu`) and the one PyTorch call that computes the
-     same subband samples, conv1d (a yardstick the port never calls).
+  4. (compat) the filterbank stage (the counterpart of
+     tools/profile_step.py's): on that step's own chunk and history,
+     CUDA-event times of the plain stepwise filterbank, the production
+     folded matmul, the K3 kernel (`ops/csrc/polyphase.cu`) and the one
+     PyTorch call that computes the same subband samples, conv1d (a
+     yardstick the port never calls).
 
 Prints the card's name and power limit beside the numbers. Needs a CUDA
 card; imports nothing of JAX and nothing of the JAX package.
@@ -93,23 +102,81 @@ def filterbank_stage(hist: torch.Tensor, chunk: torch.Tensor) -> dict:
     }
 
 
-def main() -> int:
+def _instrument(marks: dict, captured: dict, strict: bool):
+    """Wrap the functions at the phase boundaries of a step: each wrapper
+    synchronises the card and stamps marks[before] / marks[after]; the
+    strict sweep's entropy layouts add their synchronised time to
+    marks["layout_s"]. The first call's arguments land in `captured`.
+    Returns a function that undoes the wrapping."""
+    from swiftmp3_tpu_torch.ops import dsp, kernels
+
+    if strict:
+        points = [
+            (dsp, "granule_scalefactors_device", "sf_start", None),
+            (dsp, "rate_loop_precompute_strict", "sweep_start", "sweep_end"),
+            (dsp, "strict_finalize", "loop_end", "finalize_end"),
+            (kernels, "pack", "pack_start", "pack_end"),
+        ]
+    else:
+        points = [
+            (dsp, "rate_loop_precompute", None, "phase1_end"),
+            (dsp, "rate_loop_finalize", "loop_end", None),
+        ]
+    saved = []
+
+    def wrap(mod, name, before, after):
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def wrapper(*a, **kw):
+            captured.setdefault(name, (a, kw))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if before:
+                marks[before] = t
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            if after:
+                marks[after] = time.perf_counter()
+            if name == "strict_layout_device" and "sweep_end" not in marks:
+                marks["layout_s"] = marks.get("layout_s", 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(mod, name, wrapper)
+
+    for point in points:
+        wrap(*point)
+    if strict:
+        wrap(dsp, "strict_layout_device", None, None)
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return undo
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
+    strict = "--strict" in (sys.argv[1:] if argv is None else argv)
 
     from swiftmp3_tpu_torch.ops import dsp
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
     from swiftmp3_tpu_torch.parallel.batch import BatchEncoder
     from tests.torch_inputs import B_MAIN as B
     from tests.torch_inputs import T_MAIN as T
-    from tests.torch_inputs import MAIN_OPTIONS, bench_audio
+    from tests.torch_inputs import MAIN_OPTIONS, STRICT_OPTIONS, bench_audio
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    opts = MP3EncoderOptions(**MAIN_OPTIONS)
+    if strict:
+        opts = MP3EncoderOptions.spec_strict(**STRICT_OPTIONS)
+    else:
+        opts = MP3EncoderOptions(**MAIN_OPTIONS)
     rng = np.random.default_rng(0)
     audio = [bench_audio(rng, B, T, 2, opts.sample_rate) for _ in range(4)]
     final = np.zeros((B, T), bool)
@@ -120,23 +187,8 @@ def main() -> int:
             enc.drain(enc.step(audio[k], final, valid), valid)
 
         # 1. phase wall times (synchronised boundaries)
-        marks = {}
-
-        def timed(fn, before, after):
-            def wrapper(*a, **kw):
-                torch.cuda.synchronize()
-                if before:
-                    marks[before] = time.perf_counter()
-                out = fn(*a, **kw)
-                torch.cuda.synchronize()
-                if after:
-                    marks[after] = time.perf_counter()
-                return out
-            return wrapper
-
-        orig = (dsp.rate_loop_precompute, dsp.rate_loop_finalize)
-        dsp.rate_loop_precompute = timed(orig[0], None, "phase1_end")
-        dsp.rate_loop_finalize = timed(orig[1], "loop_end", None)
+        marks, captured = {}, {}
+        undo = _instrument(marks, captured, strict)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -144,16 +196,37 @@ def main() -> int:
             outs["ready"].synchronize()
             t1 = time.perf_counter()
         finally:
-            dsp.rate_loop_precompute, dsp.rate_loop_finalize = orig
+            undo()
         enc.drain(outs, valid)
-        p1 = marks["phase1_end"] - t0
-        loop = marks["loop_end"] - marks["phase1_end"]
-        p3 = t1 - marks["loop_end"]
-        print(f"[phases] B={B} T={T} {card}: phase1+sweep {p1 * 1e3:.2f} ms, "
-              f"loop over T {loop * 1e3:.2f} ms, phase3+pack+D2H {p3 * 1e3:.2f} ms, "
-              f"step {(t1 - t0) * 1e3:.2f} ms (synchronised)", flush=True)
+        ms = lambda a, b: (marks[b] - marks[a]) * 1e3  # noqa: E731
+        marks["t0"], marks["t1"] = t0, t1
+        if strict:
+            sweep = ms("sweep_start", "sweep_end")
+            layout = marks["layout_s"] * 1e3
+            print(f"[phases] strict B={B} T={T} {card}: ingest..MDCT {ms('t0', 'sf_start'):.2f} ms, "
+                  f"scalefactors+gains {ms('sf_start', 'sweep_start'):.2f} ms, strict sweep "
+                  f"{sweep:.2f} ms (entropy layout {layout:.2f} ms of it, "
+                  f"{100 * layout / sweep:.1f}%), loop over T {ms('sweep_end', 'loop_end'):.2f} ms, "
+                  f"finalize {ms('loop_end', 'finalize_end'):.2f} ms, second loop+chunks "
+                  f"{ms('finalize_end', 'pack_start'):.2f} ms, pack {ms('pack_start', 'pack_end'):.2f} ms, "
+                  f"output+carry+D2H {ms('pack_end', 't1'):.2f} ms, step {ms('t0', 't1'):.2f} ms "
+                  f"(synchronised)", flush=True)
+            # 2. device times of the sweep and of one layout on this step's inputs
+            a, kw = captured["rate_loop_precompute_strict"]
+            sweep_ms = cuda_ms(lambda: dsp.rate_loop_precompute_strict(*a, **kw), reps=3, warmup=1)
+            a, kw = captured["strict_layout_device"]
+            layout_ms = cuda_ms(lambda: dsp.strict_layout_device(*a, **kw), reps=10)
+            print(f"[sweep] strict sweep {sweep_ms:.2f} ms device (20 gains), one entropy layout "
+                  f"{layout_ms:.3f} ms ({100 * 20 * layout_ms / sweep_ms:.1f}% of the sweep at 20 "
+                  f"layouts), {card}", flush=True)
+            captured.clear()
+        else:
+            print(f"[phases] B={B} T={T} {card}: phase1+sweep {ms('t0', 'phase1_end'):.2f} ms, "
+                  f"loop over T {ms('phase1_end', 'loop_end'):.2f} ms, phase3+pack+D2H "
+                  f"{ms('loop_end', 't1'):.2f} ms, step {ms('t0', 't1'):.2f} ms (synchronised)",
+                  flush=True)
 
-        # 2. profiler over one unsynchronised step
+        # 3. profiler over one unsynchronised step
         hist = enc.carry["fb_hist"].clone()  # the profiled step's history
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         torch.cuda.synchronize()
@@ -171,16 +244,17 @@ def main() -> int:
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
     ]
     busy_us = sum(e.device_time_total for e in kernel_events)
-    print(f"[profile] step wall {wall * 1e3:.2f} ms, {len(kernel_events)} device "
-          f"events, device busy {busy_us / 1e3:.2f} ms ({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of "
-          f"the step), {card}", flush=True)
+    print(f"[profile] {'strict ' if strict else ''}step wall {wall * 1e3:.2f} ms, "
+          f"{len(kernel_events)} device events, device busy {busy_us / 1e3:.2f} ms "
+          f"({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of the step), {card}", flush=True)
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=25))
 
-    # 3. the filterbank stage on the profiled step's chunk
-    fb = filterbank_stage(hist, filterbank_input(audio[3], "cuda"))
-    print(f"[filterbank] {B * 2} rows x T={T} ({36 * T} windows), {card}: "
-          f"plain stepwise {fb['plain_ms']:.4f} ms, folded matmul {fb['matmul_ms']:.4f} ms, "
-          f"K3 kernel {fb['ms']:.4f} ms, conv1d {fb['library_ms']:.4f} ms", flush=True)
+    if not strict:
+        # 4. the filterbank stage on the profiled step's chunk
+        fb = filterbank_stage(hist, filterbank_input(audio[3], "cuda"))
+        print(f"[filterbank] {B * 2} rows x T={T} ({36 * T} windows), {card}: "
+              f"plain stepwise {fb['plain_ms']:.4f} ms, folded matmul {fb['matmul_ms']:.4f} ms, "
+              f"K3 kernel {fb['ms']:.4f} ms, conv1d {fb['library_ms']:.4f} ms", flush=True)
     print(card)
     return 0
 
