@@ -27,12 +27,22 @@ reference streams are committed files). Phases:
      same audio, launch counts read around it, every frame walk checked;
      then K2 against its plain version, bit-exact, on the pack input the
      strict path gave it (P = 1872 slots a frame), with its time and bound;
+  4c. the hq paths: BatchEncoder at MP3EncoderOptions.hq(joint stereo, 128
+     kbps, 44.1 kHz), 256 streams x 128 frames, 2 steps of the same audio
+     with each frame's lookahead granule (built as bench.py builds it), and
+     one step of hq(stereo, ...), bench.py's hq cell; launch counts read
+     around each, every frame walk checked; then K2 against its plain
+     version, bit-exact, on the pack input the hq path gave it (P = 4176
+     slots a frame) and on the same slots three times over (every frame past
+     the cap), with its time, bound and share;
   5. parity: the 8 compat fixture rows through new_session(o) against the
      JAX backend's committed streams (tests/fixtures/*.tpu.mp3), and 2
      main-path streams and the ULP-telemetry corpus against the golden numpy
      backend's frozen streams (tests/fixtures/torch/): structurally equal,
      byte flips pinned; the same for the 4 strict fixture rows and the
-     golden strict streams;
+     golden strict streams; for each hq configuration, the hq fixture rows
+     and the corpus against the JAX backend's frozen bytes and the corpus
+     against the golden encoder's frozen hq streams;
   6. a `kernels` JSON line (K1 and K2 as the compat main path launched
      them, K3 as the filterbank stage did), the card line, and the result
      line.
@@ -70,9 +80,19 @@ TELEMETRY_FLIP_CEILING = 2  # over 6 classes (72 frames)
 STRICT_FIXTURE_FLIP_CEILING = 2
 STRICT_GOLDEN_FLIP_CEILING = 4
 STRICT_TELEMETRY_FLIP_CEILING = 16
+# The hq paths, against the golden encoder's frozen streams of the telemetry
+# corpus (78 frames): the JAX backend's hq ceiling (it measured 16/78), and
+# for stereo the JAX backend's own rate on the frozen files (25/78) under the
+# telemetry suite's rule, max(2x, +2). Against the JAX backend's frozen bytes
+# (the port on the CPU: 0 of 64 fixture-row frames, 7 of 78 corpus frames in
+# joint stereo, on two float knife edges), the rate 24/78 over the hq
+# fixture rows (64 frames) and the corpus.
+HQ_GOLDEN_FLIP_CEILING = {"hq_joint": 24, "hq_stereo": 50}
+HQ_JAX_FLIP_RATE = (24, 78)
 
 STEPS_MAIN = 3
 STEPS_STRICT = 2
+STEPS_HQ = 2  # joint stereo; stereo takes one
 K3_TOLERANCE = 2e-5  # tests/test_pallas.py, the JAX package's own for K3
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -133,9 +153,12 @@ def _check_walks(streams, n_frames: int) -> None:
 
 def _drive(options, audio, steps: int):
     """BatchEncoder over `steps` chunks of `audio` [B, T, 2304] int16, each
-    rendered to bytes; the launch counts are set to 0 just before and read
-    just after. Returns (streams, step device ms, step+render wall s,
-    launches, the first pack call's (chunks, nbits, cap))."""
+    rendered to bytes (under window_sequencing with each frame's lookahead
+    granule); the launch counts are set to 0 just before and read just
+    after. Returns (streams, step device ms, step+render wall s, launches,
+    the first pack call's (chunks, nbits, cap))."""
+    from tests.torch_inputs import step_lookahead
+
     import torch
 
     from swiftmp3_tpu_torch.ops import kernels
@@ -163,7 +186,8 @@ def _drive(options, audio, steps: int):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            outs = enc.step(audio[k], final, valid)
+            la = step_lookahead(audio, k, options.channels) if options.window_sequencing else None
+            outs = enc.step(audio[k], final, valid, la)
             end.record()
             end.synchronize()
             step_ms.append(start.elapsed_time(end))
@@ -193,6 +217,7 @@ def main() -> int:
     from tests.torch_inputs import (
         B_MAIN,
         COMPAT_FIXTURES,
+        HQ_OPTIONS,
         MAIN_OPTIONS,
         STRICT_FIXTURES,
         STRICT_OPTIONS,
@@ -201,6 +226,8 @@ def main() -> int:
         fixture_path,
         golden_path,
         golden_streams,
+        hq_streams,
+        jax_path,
         knife_edge_sweep_input,
         make_signal,
     )
@@ -391,6 +418,48 @@ def main() -> int:
           f"{100 * bound_ms / ms:.1f}% of its bound", flush=True)
     del c_d, n_d, s_pack
 
+    # ---- 4c. the hq paths ---------------------------------------------------------
+    hq_opts = {p: MP3EncoderOptions.hq(**kw) for p, kw in HQ_OPTIONS.items()}
+    hq_launches = {}
+    for preset, steps in (("hq_joint", STEPS_HQ), ("hq_stereo", 1)):
+        h_streams, h_step_ms, h_wall_s, h_launches, h_pack = _drive(
+            hq_opts[preset], audio, steps
+        )
+        if h_launches["pack"] < steps:
+            raise AssertionError(f"the {preset} path launched pack {h_launches['pack']} "
+                                 f"times in {steps} steps")
+        _check_walks(h_streams, steps * T_MAIN)
+        hq_launches[preset] = h_launches
+        print(f"[{preset}] BatchEncoder hq {HQ_OPTIONS[preset]} B={B_MAIN} T={T_MAIN} x {steps} "
+              f"steps, {card}: step device ms {['%.2f' % t for t in h_step_ms]} "
+              f"({audio_s / (h_step_ms[-1] / 1e3):.1f} audio-s/s at the last step); step+render "
+              f"wall s {['%.3f' % t for t in h_wall_s]}; {B_MAIN} streams x {steps * T_MAIN} "
+              f"frames walk OK; launches {h_launches}", flush=True)
+        if preset == "hq_joint":
+            hq_pack = h_pack
+        del h_streams, h_pack
+    c_d, n_d, cap = hq_pack
+    err = 0
+    for c, n in ((c_d, n_d), (torch.cat([c_d] * 3, 1).contiguous(), torch.cat([n_d] * 3, 1).contiguous())):
+        by, tot = kernels.pack(c, n, cap)
+        pby, ptot = kernels.pack_plain(c, n, cap)
+        err = max(err, int((by.int() - pby.int()).abs().max()), int((tot - ptot).abs().max()))
+    over = int((ptot > 8 * cap).sum())
+    del c, n, by, pby
+    if err:
+        raise AssertionError(f"pack kernel disagrees with its plain version at the hq shape (max {err})")
+    F, P = c_d.shape
+    ms = cuda_ms(lambda: kernels.pack(c_d, n_d, cap), reps=20)
+    plain_ms = cuda_ms(lambda: kernels.pack_plain(c_d, n_d, cap), reps=5)
+    bound_ms, bound_by = _bound(4 * 2 * F * P + F * cap + 4 * F, 6 * F * P)
+    print(f"[K2 hq] pack bit-exact on the hq path's input F={F} P={P} cap={cap} "
+          f"({int((n_d > 0).sum())} live slots, widest {int(n_d.max())} bits) and on its slots "
+          f"three times over ({over} of {F} frames past the cap), {card}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f}% of its bound; launches on the hq paths "
+          f"{ {p: v['pack'] for p, v in hq_launches.items()} }", flush=True)
+    del c_d, n_d, hq_pack
+
     # ---- 5. parity ---------------------------------------------------------
     fixture_flips, fixture_frames = 0, 0
     for name, kw, sig_kind, seconds, seed in COMPAT_FIXTURES:
@@ -457,6 +526,31 @@ def main() -> int:
         or flips["corpus"] > STRICT_TELEMETRY_FLIP_CEILING
     ):
         raise AssertionError("strict byte flips above the pinned ceiling")
+    num, den = HQ_JAX_FLIP_RATE
+    for preset, o in hq_opts.items():
+        flips = {"row": 0, "corpus": 0, "golden": 0}
+        frames = {"row": 0, "corpus": 0}
+        for stem, pcm in hq_streams().items():
+            s = new_session(o)
+            got = s.encode(pcm) + s.flush()
+            with open(jax_path(f"{preset}_{stem}"), "rb") as fh:
+                ref = fh.read()
+            group = stem.split("_")[0]
+            flips[group] += _compare_streams(got, ref, f"{preset} {stem} vs JAX")
+            frames[group] += len(_frames(ref))
+            if group == "corpus":
+                with open(golden_path(stem, preset), "rb") as fh:
+                    flips["golden"] += _compare_streams(got, fh.read(), f"{preset} {stem} vs golden")
+        print(f"[parity {preset}] fixture rows vs JAX {flips['row']}/{frames['row']}, corpus vs "
+              f"JAX {flips['corpus']}/{frames['corpus']} (ceiling rate {num}/{den}); telemetry "
+              f"corpus vs golden {flips['golden']}/{frames['corpus']} (ceiling "
+              f"{HQ_GOLDEN_FLIP_CEILING[preset]})", flush=True)
+        if (
+            flips["row"] * den > num * frames["row"]
+            or flips["corpus"] * den > num * frames["corpus"]
+            or flips["golden"] > HQ_GOLDEN_FLIP_CEILING[preset]
+        ):
+            raise AssertionError(f"{preset} byte flips above the pinned ceiling")
 
     # ---- 6. result lines ----------------------------------------------------
     rows = [

@@ -1,20 +1,24 @@
 """The chunk program in PyTorch: chunk-parallel DSP + small integer loops
 over T. Twin of `swiftmp3_tpu.models.pipeline.make_chunk_fn` for the compat
-preset and the spec_strict preset (MPEG-1, depth-1 reservoir).
+preset, the spec_strict preset and the hq preset (MPEG-1, depth-1
+reservoir).
 
 Per chunk of T frames x B streams:
 
   Phase 1 (parallel): ingest, stereo decision (with the ISO M/S laws),
     polyphase filterbank, transient detection (blocks shared across M/S
-    channels under shared_ms_blocks), MDCT, then either the compat initial
-    gains and table-15 rate sweep (kernel K1), or the strict path: real
-    scalefactors, scfsi, and the strict-entropy sweep pricing all 20 gains
-    exactly (plain PyTorch, as the reference computes it outside any
-    Pallas kernel).
-  Phase 2 (loop over T, integers only): bitrate, padding, reservoir budget,
-    candidate selection and the reservoir mirror. Invalid frames freeze the
-    carry. The strict path runs this loop on its priced stream-length
-    mirror (`est_stream_len`).
+    channels under shared_ms_blocks) or, under window_sequencing, the ISO
+    window sequence from the raw PCM and each frame's lookahead granule,
+    MDCT, then either the compat initial gains and table-15 rate sweep
+    (kernel K1), or the strict path: real scalefactors, scfsi, and the
+    strict-entropy sweep pricing all 20 gains exactly (plain PyTorch, as
+    the reference computes it outside any Pallas kernel), with the linbits
+    ESC tables under linbits_tables.
+  Phase 2 (loop over T, integers only): bitrate, padding, reservoir budget
+    (split by the demand-donation law under demand_budget), candidate
+    selection and the reservoir mirror. Invalid frames freeze the carry.
+    The strict path runs this loop on its priced stream-length mirror
+    (`est_stream_len`).
   Phase 3 (parallel): re-quantize at the selected gains; compat: regions,
     preflag, table-15 chunks; strict: the entropy layout, a second integer
     loop over T on the actual bits (the real `stream_len` and
@@ -38,10 +42,17 @@ import torch
 from ..io.framing import FrameResult
 from ..io.sideinfo import GranuleInfo
 from ..ops import dsp, kernels
-from ..options import MP3EncoderOptions, Mode
+from ..options import SAMPLES_PER_GRANULE, MP3EncoderOptions, Mode
 from ..tables import bitrate_index, bitrate_value, mode_bits
 
 MAX_FRAME_MAIN_BITS = 1152 * 15  # all pair slots at 15 bits
+# The linbits law's initial-gain target (peaks quantize near 2048) and its
+# demand probe (the grid candidate whose priced bits are a granule's demand
+# under demand_budget): copies of swiftmp3_tpu/ops/reference.py
+# LINBITS_Q_TARGET and K_DEMAND, held equal by the tests.
+LINBITS_Q_TARGET = 2048.0
+K_DEMAND = 10
+PART23_MAX_BITS = 4095  # part2_3_length is a 12-bit field
 
 _CARRY_SPEC = {
     # name: (per-stream shape given (channels, reservoir_depth), dtype)
@@ -55,23 +66,44 @@ _CARRY_SPEC = {
     "vbr_ehist": (lambda ch, k: (10,), torch.float32),
     "vbr_count": (lambda ch, k: (), torch.int32),
 }
+# window_sequencing's carry: the previous granule's emitted-short state and
+# raw want, and its last two 96-sample block energies per channel (+inf: no
+# past yet)
+_SEQ_CARRY_SPEC = {
+    "seq_prev_short": (lambda ch, k: (), torch.bool),
+    "seq_prev_want": (lambda ch, k: (), torch.bool),
+    "onset_prev2": (lambda ch, k: (ch, 2), torch.float32),
+}
+
+
+def _carry_spec(window_sequencing: bool) -> dict:
+    return {**_CARRY_SPEC, **(_SEQ_CARRY_SPEC if window_sequencing else {})}
+
+
+def _lowpass_active(options: MP3EncoderOptions) -> bool:
+    """The lowpass stage runs only when its cut lies below Nyquist
+    (pipeline.py:425-427); a cut at or above it is a byte no-op."""
+    lp = options.lowpass_hz
+    return lp is not None and lp * 64 // options.sample_rate < 32
 
 
 def check_supported(options: MP3EncoderOptions) -> None:
-    """Raise NotImplementedError for any option outside the port (the compat
-    and spec_strict chunk programs at MPEG-1 rates, reservoir depth 1),
-    naming the ROADMAP Queue 1 item that brings it."""
+    """Raise NotImplementedError for any option outside the port (the
+    compat, spec_strict and hq chunk programs at MPEG-1 rates, reservoir
+    depth 1), naming the ROADMAP Queue 1 item that brings it. A flag the
+    reference's chunk program never reads at this configuration (intensity
+    stereo above 24 kbps a channel, distortion control below 112 kbps a
+    channel, a lowpass at or above Nyquist) encodes as the flag-off
+    program, as the reference's does."""
     o = options
+    lowpass = _lowpass_active(o)
     unsupported = [
-        (o.window_sequencing, "window_sequencing", 8),
-        (o.linbits_tables, "linbits_tables", 8),
-        (o.demand_budget, "demand_budget", 8),
         (o.vbr_demand, "vbr_demand", 8),
-        (o.lowpass_hz is not None, "lowpass_hz", 8),
-        (o.adaptive_lowpass, "adaptive_lowpass", 8),
+        (lowpass and o.adaptive_lowpass, "adaptive_lowpass", 8),
+        (lowpass, "lowpass_hz", 8),
         (o.reservoir_depth > 1, "reservoir_depth > 1", 8),
-        (o.distortion_control, "distortion_control", 9),
-        (o.intensity_stereo, "intensity_stereo", 10),
+        (o.distortion_control_active, "distortion_control", 9),
+        (o.intensity_stereo_active and o.channels == 2, "intensity_stereo", 10),
         (bool(o.lsf), "LSF sample rates", 11),
         (o.free_format, "free_format", 11),
     ]
@@ -79,8 +111,8 @@ def check_supported(options: MP3EncoderOptions) -> None:
         if active:
             raise NotImplementedError(
                 f"{name} is not in the PyTorch port yet (ROADMAP Queue 1 "
-                f"item {item}); the port covers the compat and spec_strict "
-                "chunk programs"
+                f"item {item}); the port covers the compat, spec_strict and "
+                "hq chunk programs"
             )
 
 
@@ -99,12 +131,45 @@ def resolve_device(device) -> torch.device:
 def init_carry(
     batch: int, options: MP3EncoderOptions, device: torch.device
 ) -> dict:
-    """Fresh per-stream state (pipeline.py:80-115, compat keys)."""
+    """Fresh per-stream state (pipeline.py:80-115): zeros, and +inf block
+    energies (no past) under window_sequencing."""
     ch, k = options.channels, options.reservoir_depth
-    return {
+    carry = {
         name: torch.zeros((batch, *shape(ch, k)), dtype=dtype, device=device)
-        for name, (shape, dtype) in _CARRY_SPEC.items()
+        for name, (shape, dtype) in _carry_spec(options.window_sequencing).items()
     }
+    if options.window_sequencing:
+        carry["onset_prev2"].fill_(float("inf"))
+    return carry
+
+
+def demand_budget_bits(
+    demand: torch.Tensor, total: torch.Tensor, equal: torch.Tensor
+) -> torch.Tensor:
+    """The donation law of demand_budget (pipeline.py:804-827): a frame's
+    granules whose demand sits under the equal share donate their surplus,
+    and granules over it split the donations by deficit, each budget capped
+    at the 12-bit part2_3_length. An exact no-op on frames without both a
+    surplus and a deficit. demand: [B, G] int32 priced bits at K_DEMAND;
+    total: [B] the frame's bits (slot + usable reservoir); equal: [B] the
+    equal split the frame keeps when no granule has demand. Returns the
+    per-granule budgets [B, G] int32."""
+    n_gran = demand.shape[-1]
+    i32 = torch.int32
+    share = (total // n_gran)[:, None]
+    surplus = torch.clamp(share - demand, min=0)
+    deficit = torch.clamp(demand - share, min=0)
+    pool = torch.sum(surplus, dim=-1, keepdim=True, dtype=i32)
+    need = torch.sum(deficit, dim=-1, keepdim=True, dtype=i32)
+    take = torch.minimum(pool, need)
+    prop = (
+        share
+        - (surplus * take) // torch.clamp(pool, min=1)
+        + (take * deficit) // torch.clamp(need, min=1)
+    )
+    prop = torch.clamp(prop, max=PART23_MAX_BITS)
+    has_demand = torch.sum(demand, dim=-1, keepdim=True, dtype=i32) > 0
+    return torch.where(has_demand, prop, equal[:, None]).to(i32)
 
 
 def main_data_cap(options: MP3EncoderOptions) -> int:
@@ -126,12 +191,15 @@ def main_data_cap(options: MP3EncoderOptions) -> int:
 
 def make_chunk_fn(options: MP3EncoderOptions):
     """Build the chunk encode function
-    (carry, pcm [B,T,1152*ch], final [B,T], valid [B,T]) -> (carry, outputs).
+    (carry, pcm [B,T,1152*ch], final [B,T], valid [B,T], la=None) ->
+    (carry, outputs).
 
     All tensors lie on one device, the carry's. pcm is float32 or int16
-    (normalized by 1/32768). outputs = {"packed": [B, T, cap + 4*M] uint8}:
-    each frame's main_data image followed by its int32 side-info words,
-    little-endian (the layout `fetch_outputs` reads)."""
+    (normalized by 1/32768). la [B, T, 576*ch]: each frame's lookahead, the
+    raw granule after it (zeros past a stream's end), required under
+    window_sequencing and ignored otherwise. outputs = {"packed": [B, T,
+    cap + 4*M] uint8}: each frame's main_data image followed by its int32
+    side-info words, little-endian (the layout `fetch_outputs` reads)."""
     check_supported(options)
     sr = options.sample_rate
     ch = options.channels
@@ -154,9 +222,51 @@ def make_chunk_fn(options: MP3EncoderOptions):
     iso_short = options.iso_short_blocks
     joint = options.mode is Mode.JOINT_STEREO
     mode_ext = mode_bits(options.mode.value)[1]
+    win_seq = options.window_sequencing
+    linbits = options.linbits_tables
+    demand_budget = strict and options.demand_budget
     i32 = torch.int32
 
-    def run(carry, pcm, final, valid):
+    def sequence(carry, pcm_bt, left, right, la, final, valid):
+        """The ISO window sequence from the raw pre-matrix PCM, shared
+        across channels (pipeline.py:228-294): each granule's short want
+        (a transient or an onset/drop), the next granule's (the frame's
+        lookahead granule for its last, never past a stream's end), then
+        the sequencing law. Returns (block [B, ch, T, gr], onset tails
+        [B, chs, G, 2], seq_prev_short, seq_prev_want)."""
+        B, T = valid.shape
+        if ch == 1:
+            raw_g = pcm_bt.reshape(B, 1, T, n_gr, 576)
+            la_g = la.reshape(B, 1, T, 576)
+        else:
+            raw_g = torch.stack([left, right], dim=1).reshape(B, 2, T, n_gr, 576)
+            la_g = torch.stack([la[..., 0::2], la[..., 1::2]], dim=1)  # [B, 2, T, 576]
+        chs = raw_g.shape[1]
+        rb, _ = dsp.transient_frame(raw_g)  # [B, chs, T, gr]
+        ow, tails = dsp.onset_wants_chunk(
+            raw_g.reshape(B, chs, T * n_gr, 576), carry["onset_prev2"]
+        )
+        want_b = torch.any((rb != dsp.BLOCK_LONG) | ow.reshape(B, chs, T, n_gr), dim=1)
+        # the lookahead granule of frame t follows frame t's last granule:
+        # that granule's tails are its chain context
+        lb, _ = dsp.transient_frame(la_g)  # [B, chs, T]
+        la_prev2 = tails.reshape(B, chs, T, n_gr, 2)[..., -1, :]
+        ow_la, _ = dsp.onset_wants_chunk(la_g[..., None, :], la_prev2)
+        want_la = torch.any((lb != dsp.BLOCK_LONG) | ow_la[..., 0], dim=1)  # [B, T]
+        # nothing attacks past a stream's end (the golden law's flush)
+        want_la = want_la & ~final
+        want_next = torch.cat([want_b[..., 1:], want_la[..., None]], dim=-1)
+        bts, seq_ps, seq_pw = dsp.sequence_blocks_chunk(
+            want_b.reshape(B, n_gr * T),
+            want_next.reshape(B, n_gr * T),
+            valid.repeat_interleave(n_gr, dim=1),
+            carry["seq_prev_short"],
+            carry["seq_prev_want"],
+        )
+        block_b = bts.reshape(B, 1, T, n_gr).expand(B, ch, T, n_gr)
+        return block_b, tails, seq_ps, seq_pw
+
+    def run(carry, pcm, final, valid, la=None):
         pcm = dsp.ingest(pcm)
         B, T = pcm.shape[0], pcm.shape[1]
         dev = pcm.device
@@ -164,6 +274,7 @@ def make_chunk_fn(options: MP3EncoderOptions):
         # ---------------- Phase 1: parallel DSP (batch-major) ----------------
         pcm_bt = pcm.reshape(B, T * pcm.shape[-1])
         use_ms = None  # per-frame M/S decision (joint stereo only)
+        left = right = None
         if ch == 1:
             pcm_chunk = pcm_bt[:, None, :]
         else:
@@ -180,34 +291,53 @@ def make_chunk_fn(options: MP3EncoderOptions):
         granule_pcm = pcm_chunk.reshape(B, ch, T, n_gr, 576)
 
         S, full_x = dsp.polyphase_chunk_matmul(carry["fb_hist"], pcm_chunk)
-        block_b, sb_gain_b = dsp.transient_frame(granule_pcm)  # [B,ch,T,gr], [..,3]
-        if options.shared_ms_blocks and use_ms is not None:
-            # M/S frames carry one window layout across both channels: the
-            # raw L/R verdicts, the more transient winning (pipeline.py:388-403)
-            raw_g = torch.stack([left, right], dim=1).reshape(B, 2, T, n_gr, 576)
-            shared = torch.amax(dsp.transient_frame(raw_g)[0], dim=1, keepdim=True)
-            block_b = torch.where(use_ms[:, None, :, None], shared, block_b)
-        if iso_quant:
-            # the unit-gain law emits no per-window gains (pipeline.py:412-417)
-            sb_gain_b = torch.zeros_like(sb_gain_b)
+        if win_seq:
+            if la is None:
+                raise ValueError(
+                    "window_sequencing needs each frame's lookahead granule, "
+                    "la [B, T, 576*ch]"
+                )
+            block_b, onset_tails, seq_ps, seq_pw = sequence(
+                carry, pcm_bt, left, right, dsp.ingest(la), final, valid
+            )
+            sb_gain_b = torch.zeros((B, ch, T, n_gr, 3), dtype=i32, device=dev)
+        else:
+            block_b, sb_gain_b = dsp.transient_frame(granule_pcm)  # [B,ch,T,gr], [..,3]
+            if options.shared_ms_blocks and use_ms is not None:
+                # M/S frames carry one window layout across both channels: the
+                # raw L/R verdicts, the more transient winning (pipeline.py:388-403)
+                raw_g = torch.stack([left, right], dim=1).reshape(B, 2, T, n_gr, 576)
+                shared = torch.amax(dsp.transient_frame(raw_g)[0], dim=1, keepdim=True)
+                block_b = torch.where(use_ms[:, None, :, None], shared, block_b)
+            if iso_quant:
+                # the unit-gain law emits no per-window gains (pipeline.py:412-417)
+                sb_gain_b = torch.zeros_like(sb_gain_b)
         spectra, cur = dsp.mdct_chunk(
             S, carry["overlap"], block_b.reshape(B, ch, n_gr * T),
-            iso_mixed_alias=iso_short,
+            iso_mixed_alias=iso_short, window_seq=win_seq,
         )
         spectra = spectra.reshape(B, ch, T, n_gr, 576)
 
         sfd = scfsi_nib = sf_write = None
         if strict:
             is_long_b = block_b == dsp.BLOCK_LONG
+            # START and STOP granules take the long scalefactor layout and
+            # scfsi, but not the long entropy regions (pipeline.py:507-520)
+            transition = block_b > dsp.BLOCK_SHORT
+            sf_block_b = torch.where(transition, dsp.BLOCK_LONG, block_b)
+            long_layout_b = is_long_b | transition
             if options.real_scalefactors:
                 sfd = dsp.granule_scalefactors_device(
-                    spectra, sr, block_b, psy=options.psy_scalefactors, iso_short=iso_short
+                    spectra, sr, sf_block_b, psy=options.psy_scalefactors,
+                    iso_short=iso_short,
                 )
-                g0 = dsp.initial_gain_scaled(spectra, sfd["mag_scale"])
+                g0 = dsp.initial_gain_scaled(
+                    spectra, sfd["mag_scale"], target=LINBITS_Q_TARGET if linbits else 15.0
+                )
                 mag_scale, part2 = sfd["mag_scale"], sfd["part2"]
                 if options.scfsi:
                     # granule 1 skips the band groups equal to granule 0's
-                    scfsi_nib, sf_write = dsp.scfsi_device(sfd["sf"], is_long_b)
+                    scfsi_nib, sf_write = dsp.scfsi_device(sfd["sf"], long_layout_b)
                     part2 = dsp.scfsi_part2_device(sfd, sf_write)
             else:
                 g0 = dsp.initial_gain(spectra, iso=iso_quant)
@@ -215,7 +345,7 @@ def make_chunk_fn(options: MP3EncoderOptions):
             pre = dsp.rate_loop_precompute_strict(
                 spectra, g0, sr, is_long_b, iso_quant, options.count1_coding,
                 options.region_table_select, mag_scale=mag_scale, part2=part2,
-                block=block_b, iso_short=iso_short,
+                block=block_b, iso_short=iso_short, linbits=linbits,
             )
         else:
             g0 = dsp.initial_gain(spectra, iso=iso_quant)
@@ -237,6 +367,8 @@ def make_chunk_fn(options: MP3EncoderOptions):
         bits_t = tm(pre["bits"])
         evaluated_t = tm(pre["evaluated"])
         k_budget_t = tm(pre["k_budget"])
+        if demand_budget:
+            demand_t = tm(pre["bits"][..., K_DEMAND])  # [T, B, G]
 
         def keep(new, old, val):  # invalid frames freeze the carry
             return {
@@ -299,10 +431,18 @@ def make_chunk_fn(options: MP3EncoderOptions):
             usable = (res_bits * 9) // 10
             if aligned:
                 usable = torch.minimum(usable, torch.clamp(gap, 0, res_cap) * 8)
-            bits_per_granule = (slot * 8 + usable) // n_gran
+            total_bits = slot * 8 + usable
+            bits_per_granule = total_bits // n_gran
+            if linbits:
+                # ESC coding can reach the 12-bit part2_3_length field
+                bits_per_granule = torch.clamp(bits_per_granule, max=PART23_MAX_BITS)
+            if demand_budget:
+                max_bits = demand_budget_bits(demand_t[t], total_bits, bits_per_granule)
+            else:
+                max_bits = bits_per_granule[:, None]
 
             k_sel, has_fit, bits_sel = dsp.rate_loop_select(
-                bits_t[t], evaluated_t[t], k_budget_t[t], bits_per_granule[:, None]
+                bits_t[t], evaluated_t[t], k_budget_t[t], max_bits
             )
             huffman_bytes = (torch.sum(bits_sel, dim=-1, dtype=i32) + 7) // 8
             mdb, stream_len = placement(c, gap, huffman_bytes, fin)
@@ -347,7 +487,7 @@ def make_chunk_fn(options: MP3EncoderOptions):
                 [tm(lay["tid0"]), tm(lay["tid1"]), tm(lay["tid2"])], dim=-1
             ).reshape(T, B, 3 * n_gran)
             c1t_b = lay["c1t"]
-            chunks, nb = dsp.strict_chunks_device(quantized, lay)
+            chunks, nb = dsp.strict_chunks_device(quantized, lay, linbits=linbits)
             if sfd is not None:
                 # the scalefactor bits lead each granule's main_data (part2)
                 sf_chunks, sf_nbits = dsp.scalefactor_chunks_device(sfd, sf_write)
@@ -424,12 +564,33 @@ def make_chunk_fn(options: MP3EncoderOptions):
 
         new_carry["fb_hist"] = fb_hist
         new_carry["overlap"] = overlap
+        if win_seq:
+            new_carry["seq_prev_short"] = seq_ps
+            new_carry["seq_prev_want"] = seq_pw
+            # the last valid granule's tails (index 0: the carry, when no
+            # frame is valid), gathered: the +inf sentinel meets no product
+            ext_tails = torch.cat([carry["onset_prev2"][:, :, None, :], onset_tails], dim=2)
+            gi = (n_gr * count_valid)[:, None, None, None].expand(B, ext_tails.shape[1], 1, 2)
+            new_carry["onset_prev2"] = torch.gather(ext_tails, 2, gi)[:, :, 0]
         return new_carry, outputs
 
     return run
 
 
 # --- Host side of the output contract (numpy only) ------------------------------
+
+
+def _iso_block_type(block: int, iso_short: bool) -> int:
+    """The side-info block_type of an internal block type: START 1, STOP 3,
+    MIXED 2 (+ mixed_block_flag) under iso_short_blocks, else as is."""
+    if block == dsp.BLOCK_START:
+        return 1
+    if block == dsp.BLOCK_STOP:
+        return 3
+    if block == dsp.BLOCK_MIXED and iso_short:
+        return dsp.BLOCK_SHORT
+    return block
+
 
 _GRANULE_FIELDS = (
     "part23",
@@ -487,8 +648,7 @@ def frame_results_from_outputs(
     outs: dict, options: MP3EncoderOptions, t: int, b: int
 ) -> FrameResult:
     """One (stream, time) slice of fetched outputs as a FrameResult for the
-    host assembler (twin of pipeline.py:1243-1308 without the window
-    sequencing's START/STOP granules)."""
+    host assembler (twin of pipeline.py:1243-1308)."""
     ch = options.channels
     n_gr = options.n_granules
     granules = [[None] * ch for _ in range(n_gr)]
@@ -502,12 +662,9 @@ def frame_results_from_outputs(
             scalefac_compress=int(outs["scalefac_compress"][b, t, g]),
             window_switching=0 if block == dsp.BLOCK_LONG else 1,
             # iso_short_blocks signals a mixed granule as ISO block_type 2 +
-            # mixed_block_flag (the reference's raw enum writes 1, ISO start)
-            block_type=(
-                dsp.BLOCK_SHORT
-                if options.iso_short_blocks and block == dsp.BLOCK_MIXED
-                else block
-            ),
+            # mixed_block_flag (the reference's raw enum writes 1, ISO
+            # start); window sequencing's START and STOP take ISO 1 and 3
+            block_type=_iso_block_type(block, options.iso_short_blocks),
             mixed_block_flag=1 if block == dsp.BLOCK_MIXED else 0,
             table_select=tuple(int(x) for x in outs["table_select"][b, t, g]),
             subblock_gain=tuple(int(x) for x in outs["subblock_gain"][b, t, g]),
@@ -546,10 +703,17 @@ def frame_results_from_outputs(
 # --- Checkpoints across backends -------------------------------------------------
 
 
-def carry_from_jax(state: dict, device: torch.device) -> dict:
+def carry_from_jax(
+    state: dict, device: torch.device, options: MP3EncoderOptions | None = None
+) -> dict:
     """The port's carry from a JAX checkpoint (`TPUBackend.state_dict()` or a
-    `BatchEncoder.carry` as numpy arrays). Pre-depth checkpoints
-    (prev_slot / has_buffered) convert as the JAX backend converts them."""
+    `BatchEncoder.carry` as numpy arrays). Older checkpoints convert as the
+    JAX backend converts them (pipeline.py:1370-1388): a pre-depth one
+    (prev_slot / has_buffered) to a one-slot fifo; a window-sequencing one
+    without the raw-want carry gets zeros, one without the block-energy
+    carry +inf (no past). `options`, when given, is the session's: a
+    window_sequencing session needs the sequencing carry, and no other
+    takes it; without it the carry keeps what the state holds."""
     state = dict(state)
     if "slot_fifo" not in state and "prev_slot" in state:
         ps = np.asarray(state.pop("prev_slot"))
@@ -557,14 +721,24 @@ def carry_from_jax(state: dict, device: torch.device) -> dict:
         fifo = np.zeros((ps.shape[0], 1), dtype=np.int32)
         fifo[:, -1] = np.where(hb, ps, 0)
         state["slot_fifo"] = fifo
-    extra = sorted(set(state) - set(_CARRY_SPEC))
-    if extra:
-        raise NotImplementedError(
-            f"carry keys {extra} belong to options outside the port "
-            "(window_sequencing: ROADMAP Queue 1 item 8)"
+    if "seq_prev_short" in state:
+        prev_short = np.asarray(state["seq_prev_short"])
+        if "seq_prev_want" not in state:
+            state["seq_prev_want"] = np.zeros_like(prev_short)
+        if "onset_prev2" not in state:
+            ch = np.asarray(state["fb_hist"]).shape[1]
+            state["onset_prev2"] = np.full((prev_short.shape[0], ch, 2), np.inf, np.float32)
+    seq = options.window_sequencing if options is not None else "seq_prev_short" in state
+    spec = _carry_spec(seq)
+    missing = sorted(set(spec) - set(state))
+    extra = sorted(set(state) - set(spec))
+    if missing or extra:
+        raise ValueError(
+            f"checkpoint carry keys do not fit these options: missing {missing}, "
+            f"unknown {extra}"
         )
     carry = {}
-    for name, (_, dtype) in _CARRY_SPEC.items():
+    for name, (_, dtype) in spec.items():
         arr = np.array(state[name])  # a writable copy for torch
         carry[name] = torch.from_numpy(arr).to(device=device, dtype=dtype)
     return carry
@@ -591,11 +765,11 @@ class TorchBackend:
     def encode_frames(
         self, frames: np.ndarray, is_final: np.ndarray, lookahead: np.ndarray = None
     ) -> List[FrameResult]:
-        if lookahead is not None:
-            raise NotImplementedError(
-                "lookahead frames belong to window_sequencing (ROADMAP Queue 1 item 8)"
-            )
+        """Encode frames [F, 1152*ch]; under window_sequencing, lookahead
+        [F, 576*ch] holds each frame's next raw granule (zeros when absent,
+        as past a stream's end)."""
         n = self.options.samples_per_frame * self.options.channels
+        la_n = SAMPLES_PER_GRANULE * self.options.channels
         F = len(frames)
         results: List[FrameResult] = []
         for start in range(0, F, self.CHUNK):
@@ -606,11 +780,18 @@ class TorchBackend:
             pcm[0, :count] = frames[start : start + count]
             fin[0, :count] = is_final[start : start + count]
             val[0, :count] = True
+            la = None
+            if self.options.window_sequencing:
+                la = np.zeros((1, self.CHUNK, la_n), dtype=np.float32)
+                if lookahead is not None:
+                    la[0, :count] = lookahead[start : start + count]
+                la = torch.from_numpy(la).to(self.device)
             self.carry, outs = self._run(
                 self.carry,
                 torch.from_numpy(pcm).to(self.device),
                 torch.from_numpy(fin).to(self.device),
                 torch.from_numpy(val).to(self.device),
+                la,
             )
             outs = fetch_outputs(outs, self.options)
             for t in range(count):
@@ -633,4 +814,4 @@ class TorchBackend:
         return carry_to_jax(self.carry)
 
     def load_state_dict(self, state: dict) -> None:
-        self.carry = carry_from_jax(state, self.device)
+        self.carry = carry_from_jax(state, self.device, self.options)

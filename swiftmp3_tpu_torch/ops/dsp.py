@@ -1,4 +1,4 @@
-"""Batched granule DSP of the compat and spec_strict chunk programs, in
+"""Batched granule DSP of the compat, spec_strict and hq chunk programs, in
 PyTorch.
 
 Twin of `swiftmp3_tpu.ops.dsp` for the ops those presets run. Same shapes and
@@ -30,10 +30,14 @@ from ..tables import (
     COUNT1A_LEN,
     HUFFMAN_TABLES,
     ISO_WINDOW,
+    LINBITS_24,
     LONG_MDCT_MATRIX,
     LONG_WINDOW,
+    QCAP_LINBITS,
     SHORT_MDCT_MATRIX,
     SHORT_WINDOW,
+    START_WINDOW,
+    STOP_WINDOW,
     TABLE15_CODE,
     TABLE15_LEN,
     band_table,
@@ -48,6 +52,17 @@ from . import kernels
 BLOCK_LONG = 0
 BLOCK_MIXED = 1
 BLOCK_SHORT = 2
+# window_sequencing's transition windows: long layout, except for the
+# switching 36/576 entropy regions
+BLOCK_START = 3
+BLOCK_STOP = 4
+
+# window_sequencing's want detector: a block fires on a rise past ONSET_RATIO
+# x the quieter of the two before it, or a drop past OFFSET_RATIO x the
+# quieter of the two after it (copies of swiftmp3_tpu/ops/reference.py
+# ONSET_RATIO / OFFSET_RATIO; tests hold them equal)
+ONSET_RATIO = 4.0
+OFFSET_RATIO = 4.5
 
 N_GAIN_CANDIDATES = kernels.N_GAIN_CANDIDATES
 
@@ -140,6 +155,19 @@ def build_mdct_fold(iso_mixed_alias: bool = False) -> tuple[np.ndarray, np.ndarr
     return MP.astype(np.float32), MC.astype(np.float32)
 
 
+def build_mdct_transition_ratios() -> tuple[np.ndarray, np.ndarray]:
+    """The START and STOP windows as input ratios over the flat (t*32 + sb)
+    layout, [576] each (twin of the r_start / r_stop of
+    dsp._build_mdct_fold): each transition window differs from the long one
+    on one half only (START: the current half, STOP: the overlap half), so
+    scaling that half's input samples by START/LONG (STOP/LONG) makes the
+    aliased long columns of the fold compute the transition law."""
+    W36 = np.asarray(LONG_WINDOW, dtype=np.float64)
+    r_start = np.repeat(np.asarray(START_WINDOW, dtype=np.float64)[18:] / W36[18:], 32)
+    r_stop = np.repeat(np.asarray(STOP_WINDOW, dtype=np.float64)[:18] / W36[:18], 32)
+    return r_start.astype(np.float32), r_stop.astype(np.float32)
+
+
 def build_sign_flat() -> np.ndarray:
     """[576] frequency-inversion signs in (t*32 + sb) order: -1 where the
     within-granule time index and the subband are both odd."""
@@ -148,16 +176,19 @@ def build_sign_flat() -> np.ndarray:
     return np.where(t_odd & sb_odd, -1.0, 1.0).astype(np.float32).reshape(576)
 
 
-def build_inv_step_tables() -> tuple[np.ndarray, np.ndarray]:
+def build_inv_step_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-gain float32 inverse quantizer steps, g = 0..255.
 
     Compat law: f32(1) / f32(max(2^((g-210)/4), 1e-4)) (dsp.py:87-99).
-    ISO law: f32(max(2^((g-210)/4), 1e-4)^-0.75) (dsp.py:182-190)."""
+    ISO law: f32(max(2^((g-210)/4), 1e-4)^-0.75) (dsp.py:182-190).
+    ISO law without the 1e-4 step floor, which the linbits law quantizes
+    with: f32((2^((g-210)/4))^-0.75) (reference.ISO_INV_STEP34_NOFLOOR)."""
     g = np.arange(256, dtype=np.float64)
-    step = np.maximum(2.0 ** ((g - 210.0) / 4.0), 0.0001)
+    pure = 2.0 ** ((g - 210.0) / 4.0)
+    step = np.maximum(pure, 0.0001)
     inv = (np.float32(1.0) / step.astype(np.float32)).astype(np.float32)
     inv34 = (step ** -0.75).astype(np.float32)
-    return inv, inv34
+    return inv, inv34, (pure ** -0.75).astype(np.float32)
 
 
 def build_region_bounds(sample_rate: int) -> np.ndarray:
@@ -171,8 +202,9 @@ MATRIX_REV_T = np.ascontiguousarray(ANALYSIS_MATRIX[:, ::-1].T, dtype=np.float32
 POLY_FOLD = build_polyphase_fold()
 MDCT_FOLD_P, MDCT_FOLD_C = build_mdct_fold()
 MDCT_FOLD_P_ISO, MDCT_FOLD_C_ISO = build_mdct_fold(iso_mixed_alias=True)
+MDCT_R_START, MDCT_R_STOP = build_mdct_transition_ratios()
 SIGN_FLAT = build_sign_flat()
-INV_STEP, INV_STEP34 = build_inv_step_tables()
+INV_STEP, INV_STEP34, INV_STEP34_NOFLOOR = build_inv_step_tables()
 T15_LEN = TABLE15_LEN.astype(np.int32)  # [256]
 T15_CODE = TABLE15_CODE.astype(np.int32)  # [256]
 BITRATE_VALUES = np.asarray(BITRATE_TABLE_V1, dtype=np.int32)
@@ -186,9 +218,12 @@ _CONSTANTS = {
     "mdct_c": MDCT_FOLD_C,
     "mdct_p_iso": MDCT_FOLD_P_ISO,
     "mdct_c_iso": MDCT_FOLD_C_ISO,
+    "mdct_r_start": MDCT_R_START,
+    "mdct_r_stop": MDCT_R_STOP,
     "sign_flat": SIGN_FLAT,
     "inv_step": INV_STEP,
     "inv_step34": INV_STEP34,
+    "inv_step34_nofloor": INV_STEP34_NOFLOOR,
     "t15_len": T15_LEN,
     "t15_code": T15_CODE,
     "bitrates_v1": BITRATE_VALUES,
@@ -207,8 +242,12 @@ def region_bounds(sample_rate: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(build_region_bounds(sample_rate)).to(device)
 
 
-def inv_step_table(iso: bool, device: torch.device) -> torch.Tensor:
-    return constant("inv_step34" if iso else "inv_step", device)
+def inv_step_table(iso: bool, device: torch.device, floor: bool = True) -> torch.Tensor:
+    """The inverse steps by gain: compat law, or the ISO law with or
+    without (floor=False, the linbits law) the 1e-4 step floor."""
+    if not iso:
+        return constant("inv_step", device)
+    return constant("inv_step34" if floor else "inv_step34_nofloor", device)
 
 
 # --- Ingest and stereo --------------------------------------------------------
@@ -311,15 +350,19 @@ def mdct_chunk(
     overlap: torch.Tensor,
     block_type: torch.Tensor,
     iso_mixed_alias: bool = False,
+    window_seq: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """MDCT for all 2T granules of a chunk (dsp.py:556-618, window_seq=False):
-    long, short and mixed laws from one fold; iso_mixed_alias
-    (options.iso_short_blocks) folds the subband 0/1 butterfly into the
-    mixed granules' long head.
+    """MDCT for all 2T granules of a chunk (dsp.py:556-618): long, short and
+    mixed laws from one fold; iso_mixed_alias (options.iso_short_blocks)
+    folds the subband 0/1 butterfly into the mixed granules' long head.
+    window_seq (options.window_sequencing): START and STOP granules scale
+    the current (START) or overlap (STOP) half of their input by the
+    transition window's ratio to the long one and take the aliased long
+    law.
 
     S: [..., 36T, 32]; overlap: [..., 576] previous granule's inverted
     subband samples (flat t*32 + sb); block_type: [..., 2T]. Returns
-    (spectra [..., 2T, 576], signed [..., 2T, 576])."""
+    (spectra [..., 2T, 576], signed [..., 2T, 576], the unscaled input)."""
     lead = S.shape[:-2]
     n_gran = S.shape[-2] // 18
     flat = S.reshape(*lead, n_gran, 576)
@@ -327,6 +370,10 @@ def mdct_chunk(
     ext = torch.cat([overlap[..., None, :], signed], dim=-2)
     prev = ext[..., :n_gran, :]
     cur = ext[..., 1:, :]
+    if window_seq:
+        bt_in = block_type[..., None]
+        prev = prev * torch.where(bt_in == BLOCK_STOP, constant("mdct_r_stop", S.device), 1.0)
+        cur = cur * torch.where(bt_in == BLOCK_START, constant("mdct_r_start", S.device), 1.0)
     sfx = "_iso" if iso_mixed_alias else ""
     all_laws = torch.matmul(prev, constant("mdct_p" + sfx, S.device)) + torch.matmul(
         cur, constant("mdct_c" + sfx, S.device)
@@ -338,7 +385,97 @@ def mdct_chunk(
     out = torch.where(bt == BLOCK_LONG, long_aliased, short)
     mixed = torch.cat([head36, short[..., 36:]], dim=-1)
     out = torch.where(bt == BLOCK_MIXED, mixed, out)
+    if window_seq:
+        out = torch.where((bt == BLOCK_START) | (bt == BLOCK_STOP), long_aliased, out)
     return out, signed
+
+
+# --- ISO window sequencing (twin of dsp.py:648-773) ------------------------------
+
+
+def onset_wants_chunk(
+    granules: torch.Tensor, prev2: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Onset/drop short wants over a chain of 96-sample block energies that
+    runs across granules and chunks (dsp.py:648-700). granules: [..., G,
+    576] raw PCM; prev2: [..., 2] the two block energies before the first
+    granule, +inf where the past is unknown. A block fires its granule when
+    its energy passes ONSET_RATIO x the quieter of the two blocks before it;
+    a loud block fires the granule holding its quiet aftermath when it
+    passes OFFSET_RATIO x the quieter of the two blocks after it. The +inf
+    sentinel only meets comparisons and max/min, never a product: no rise
+    over an unknown past, no drop from it, none into the unknown future.
+    Returns (wants [..., G] bool, tails [..., G, 2]: each granule's last two
+    block energies, the next granule's prev2)."""
+    lead = granules.shape[:-2]
+    G = granules.shape[-2]
+    sub = granules.reshape(*lead, G * 6, 96)
+    e = torch.sum(sub * sub, dim=-1) / 96.0
+    chain = torch.cat([prev2.to(_F32), e], dim=-1)  # e[b] at chain index b + 2
+    base = torch.minimum(chain[..., :-2], chain[..., 1:-1])
+    rise = e > ONSET_RATIO * torch.clamp(base, min=1e-4)
+    wants = torch.any(rise.reshape(*lead, G, 6), dim=-1)
+    inf_pad = torch.full((*lead, 2), float("inf"), dtype=_F32, device=e.device)
+    ext = torch.cat([chain, inf_pad], dim=-1)
+    loud = ext[..., :-2]  # chain index l fires granule l // 6
+    quiet = torch.minimum(ext[..., 1:-1], ext[..., 2:])
+    drop = torch.isfinite(loud) & (loud > OFFSET_RATIO * torch.clamp(quiet, min=1e-4))
+    wants = wants | torch.any(drop[..., : G * 6].reshape(*lead, G, 6), dim=-1)
+    return wants, e.reshape(*lead, G, 6)[..., 4:6]
+
+
+def sequence_blocks_chunk(
+    want: torch.Tensor,
+    want_next: torch.Tensor,
+    valid_g: torch.Tensor,
+    prev_short: torch.Tensor,
+    prev_want: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ISO window sequencing over a chunk's granules (dsp.py:726-773).
+
+    want, want_next, valid_g: [B, G] bool, the granule's and the next
+    granule's raw short wants and the valid mask (a prefix per stream, as
+    the chunk program's contract has it); prev_short, prev_want: [B], the
+    previous granule's emitted-short state and raw want. A granule's want
+    is its raw want or the previous granule's (a one-granule hangover); it
+    is SHORT when it wants or when the previous granule was short and the
+    next wants; else START before a wanting granule, STOP after a short one,
+    LONG otherwise. Invalid granules read the state of the last valid one
+    and leave it unchanged. Returns (block [B, G] int32, prev_short,
+    prev_want at the last valid granule).
+
+    The reference scans the granules one by one. Here the recurrence
+    s[g] = w[g] | (wn[g] & s[g-1]) is solved in closed form over the valid
+    prefix: s[g] holds when the last granule j <= g with w[j] has no
+    granule in (j, g] without wn, or when prev_short does and no granule in
+    [0, g] is without wn; two running maxima of indices find both."""
+    B, G = want.shape
+    dev = want.device
+    pos = torch.arange(G, device=dev).expand(B, G)
+    n = torch.sum(valid_g, dim=1)  # the valid prefix's length
+    last = torch.clamp(n - 1, min=0)[:, None]
+    has = n > 0
+    # the raw want before each granule: the carry, then the previous
+    # granule's; past the prefix, the last valid granule's
+    last_want = torch.where(has, torch.gather(want, 1, last)[:, 0], prev_want)
+    pw = torch.cat([prev_want[:, None], want[:, :-1]], dim=1)
+    invalid = pos >= n[:, None]
+    pw = torch.where(invalid, last_want[:, None], pw)
+    w = want | pw
+    wn = want_next | want
+    last_w = torch.cummax(torch.where(w, pos, -1), dim=1).values
+    last_no_wn = torch.cummax(torch.where(wn, -1, pos), dim=1).values
+    s = ((last_w >= 0) & (last_w >= last_no_wn)) | (prev_short[:, None] & (last_no_wn < 0))
+    last_short = torch.where(has, torch.gather(s, 1, last)[:, 0], prev_short)
+    ps = torch.cat([prev_short[:, None], s[:, :-1]], dim=1)
+    ps = torch.where(invalid, last_short[:, None], ps)
+    s = torch.where(invalid, w | (last_short[:, None] & wn), s)
+    block = torch.where(
+        s,
+        BLOCK_SHORT,
+        torch.where(wn, BLOCK_START, torch.where(ps, BLOCK_STOP, BLOCK_LONG)),
+    ).to(_I32)
+    return block, last_short, last_want
 
 
 # --- Gains and the rate loop ---------------------------------------------------
@@ -361,15 +498,23 @@ def mean_square(x: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_at_gains(
-    mag: torch.Tensor, sign_neg: torch.Tensor, gains: torch.Tensor, iso: bool = False
+    mag: torch.Tensor,
+    sign_neg: torch.Tensor,
+    gains: torch.Tensor,
+    iso: bool = False,
+    qcap: int = 15,
+    floor: bool = True,
 ) -> torch.Tensor:
-    """Quantize |x|^0.75 magnitudes at several gains (dsp.py:816-843, table-15
-    cap). mag, sign_neg: [..., 576]; gains: [..., K] int32. Returns signed
-    q [..., K, 576] int32: min(floor(mag*inv + 0.5), 15), rounded after the
-    product and after the sum, as the reference."""
-    inv = inv_step_table(iso, mag.device)[torch.clamp(gains, 0, 255).long()]
+    """Quantize |x|^0.75 magnitudes at several gains (dsp.py:816-843). mag,
+    sign_neg: [..., 576]; gains: [..., K] int32. Returns signed q [..., K,
+    576] int32: min(floor(mag*inv + 0.5), qcap), rounded after the product
+    and after the sum, as the reference. The linbits law passes
+    qcap=QCAP_LINBITS and floor=False (the ISO step without its 1e-4
+    floor). The cap applies before the conversion to int32, so no product
+    past the int32 range reaches it."""
+    inv = inv_step_table(iso, mag.device, floor)[torch.clamp(gains, 0, 255).long()]
     scaled = mag[..., None, :] * inv[..., :, None]
-    q = torch.clamp(torch.floor(scaled + 0.5), max=15.0).to(_I32)
+    q = torch.clamp(torch.floor(scaled + 0.5), max=float(qcap)).to(_I32)
     return torch.where(sign_neg[..., None, :], -q, q)
 
 
@@ -534,29 +679,43 @@ def pair_chunks_device(
 # every entry equal to the JAX lookup over its whole index range.
 
 _STRICT_TIDS = (1, 2, 5, 7, 15)  # the ids table_for_max selects (0: nothing coded)
+_ESC_TIDS = tuple(range(24, 32))  # the linbits family: table 24's codes, own widths
+N_TIDS = 32
 
 
 def build_pair_tables() -> tuple[np.ndarray, np.ndarray]:
-    """Pair code lengths and codes by table id, [16, 256] int32: row tid,
-    column x*16 + y in the 16x16 layout, zeros outside each table's
-    (max_value + 1)^2 corner and in the rows of ids never selected (0
-    included)."""
-    lens = np.zeros((16, 16, 16), np.int32)
-    codes = np.zeros((16, 16, 16), np.int32)
-    for tid in _STRICT_TIDS:
-        t = HUFFMAN_TABLES[tid]
+    """Pair code lengths and codes by table id, [32, 256] int32: row tid,
+    column min(x, 15)*16 + min(y, 15) in the 16x16 layout, zeros outside
+    each table's (max_value + 1)^2 corner and in the rows of ids never
+    selected (0 included). Ids 24-31 share table 24's rows."""
+    lens = np.zeros((N_TIDS, 16, 16), np.int32)
+    codes = np.zeros((N_TIDS, 16, 16), np.int32)
+    for tid in _STRICT_TIDS + _ESC_TIDS:
+        t = HUFFMAN_TABLES[min(tid, 24)]
         n = t.max_value + 1
         lens[tid, :n, :n] = t.lengths
         codes[tid, :n, :n] = t.codes
-    return lens.reshape(16, 256), codes.reshape(16, 256)
+    return lens.reshape(N_TIDS, 256), codes.reshape(N_TIDS, 256)
 
 
 PAIR_LEN, PAIR_CODE = build_pair_tables()
+# linbits width by table id (ISO B.7 headers of the 24 family; 0 elsewhere)
+LINBITS_OF_TID = np.zeros(N_TIDS, dtype=np.int32)
+LINBITS_OF_TID[24:] = LINBITS_24
 _Q16 = (np.arange(16) != 0).astype(np.int32)
+_E16 = (np.arange(16) == 15).astype(np.int32)  # an escaped coordinate (|v| >= 15)
 # a coded pair's bits under table tid: code length + one sign bit per nonzero
-PAIR_COST = PAIR_LEN + (_Q16[:, None] + _Q16[None, :]).reshape(1, 256)
+# coordinate + the id's linbits width per escaped coordinate
+PAIR_COST = (
+    PAIR_LEN
+    + (_Q16[:, None] + _Q16[None, :]).reshape(1, 256)
+    + LINBITS_OF_TID[:, None] * (_E16[:, None] + _E16[None, :]).reshape(1, 256)
+)
 PAIR_COST[0] = 0
 TABLE_FOR_MAX = np.array([table_for_max(m) for m in range(16)], dtype=np.int32)
+# a region maximum m > 15 takes the first 24-family id whose width holds
+# m - 15: id 24 + the number of these bounds below m - 15
+ESC_BOUNDS = np.array([(1 << lb) - 1 for lb in LINBITS_24[:-1]], dtype=np.int32)
 COUNT1A_LEN_T = COUNT1A_LEN.astype(np.int32)
 COUNT1A_CODE_T = COUNT1A_CODE.astype(np.int32)
 
@@ -602,6 +761,8 @@ _CONSTANTS.update(
         "pair_code": PAIR_CODE.reshape(-1),
         "pair_cost": PAIR_COST.reshape(-1),
         "table_for_max": TABLE_FOR_MAX,
+        "linbits_of_tid": LINBITS_OF_TID,
+        "esc_bounds": ESC_BOUNDS,
         "count1a_len": COUNT1A_LEN_T,
         "count1a_code": COUNT1A_CODE_T,
         "slen1": SLEN1,
@@ -712,6 +873,31 @@ def _pair_tids(tids: list, region: torch.Tensor) -> torch.Tensor:
     return torch.gather(torch.stack(tids, dim=-1), -1, region)
 
 
+def table_for_max_device(m: torch.Tensor, linbits: bool = False) -> torch.Tensor:
+    """The smallest table for a region maximum m (dsp.py:1352-1381): 0, 1,
+    2, 5, 7 or 15; with linbits, maxima above 15 take the smallest 24-family
+    id whose linbits width holds m - 15 (tables.linbits_table_for_max)."""
+    base = constant("table_for_max", m.device)[torch.clamp(m, max=15).long()]
+    if not linbits:
+        return base
+    esc = 24 + torch.bucketize(m - 15, constant("esc_bounds", m.device), out_int32=True)
+    return torch.where(m <= 15, base, esc)
+
+
+def linbits_of_tid(tid: torch.Tensor) -> torch.Tensor:
+    """The linbits width of each table id (dsp.py:1384-1391): 0 for the
+    classic tables, the ISO B.7 width for ids 24-31."""
+    return constant("linbits_of_tid", tid.device)[tid.long()]
+
+
+def _pair_index(x: torch.Tensor, y: torch.Tensor, linbits: bool) -> torch.Tensor:
+    """A pair's column in the [32, 256] tables: min(x, 15)*16 + min(y, 15)
+    (escaped coordinates code as 15)."""
+    if linbits:
+        x, y = torch.clamp(x, max=15), torch.clamp(y, max=15)
+    return x * 16 + y
+
+
 def strict_layout_device(
     q: torch.Tensor,
     sample_rate: int,
@@ -719,18 +905,22 @@ def strict_layout_device(
     count1_coding: bool,
     region_table_select: bool,
     assume_abs: bool = False,
+    linbits: bool = False,
     b0_switch: torch.Tensor | None = None,
 ) -> dict:
     """Layout integers of quantized spectra q [..., 576] int32 (dsp.py:
     1481-1601): big_values with the count1 region, region counts, per-region
     table ids, the count1 table and the bits of the pairs plus the quads.
     is_long [...] bool broadcasts against q's leading dims. assume_abs: q is
-    already nonnegative and capped at 15 (the sweep). b0_switch is the LSF
-    switching-granule region-0 boundary (MPEG-1 keeps 36)."""
+    already nonnegative and capped (the sweep). linbits: magnitudes up to
+    QCAP_LINBITS, regions whose maximum passes 15 take a 24-family id and
+    each escaped coordinate costs the id's linbits width. b0_switch is the
+    LSF switching-granule region-0 boundary (MPEG-1 keeps 36)."""
     if b0_switch is not None:
         raise NotImplementedError("b0_switch belongs to LSF (ROADMAP Queue 1 item 11)")
     dev = q.device
-    av = q if assume_abs else torch.clamp(torch.abs(q), max=15)
+    cap = QCAP_LINBITS if linbits else 15
+    av = q if assume_abs else torch.clamp(torch.abs(q), max=cap)
     pos = torch.arange(1, 577, dtype=_I32, device=dev)
     l0c = torch.amax(torch.where(av > 0, pos, 0), dim=-1)
     if count1_coding:
@@ -755,16 +945,17 @@ def strict_layout_device(
     valid = pairpos < bv2[..., None]
     if region_table_select:
         m_pair = torch.maximum(x, y)
-        tfm = constant("table_for_max", dev)
         tids = [
-            tfm[torch.amax(torch.where((region == r) & valid, m_pair, 0), dim=-1).long()]
+            table_for_max_device(
+                torch.amax(torch.where((region == r) & valid, m_pair, 0), dim=-1), linbits
+            )
             for r in range(3)
         ]
         tids[2] = torch.where(is_long, tids[2], 0)
     else:
         tids = [torch.full_like(bv, 15) for _ in range(3)]
     tid_pair = _pair_tids(tids, region)
-    cost = constant("pair_cost", dev)[(tid_pair * 256 + x * 16 + y).long()]
+    cost = constant("pair_cost", dev)[(tid_pair * 256 + _pair_index(x, y, linbits)).long()]
     pair_bits = torch.sum(torch.where(valid, cost, 0), dim=-1, dtype=_I32)
 
     if count1_coding:
@@ -811,6 +1002,7 @@ def rate_loop_precompute_strict(
     part2: torch.Tensor | None = None,
     block: torch.Tensor | None = None,
     iso_short: bool = False,
+    linbits: bool = False,
     b0_switch: torch.Tensor | None = None,
 ) -> dict:
     """The strict-entropy sweep (dsp.py:1604-1736): every one of the 20
@@ -820,7 +1012,11 @@ def rate_loop_precompute_strict(
     amplification and the scalefactor bits added to every candidate.
     iso_short: switching granules' magnitudes and signs go to the ISO
     2.4.3.4.8 stream order first (quantization is pointwise), the sign
-    riding on the magnitude's sign bit through one gather."""
+    riding on the magnitude's sign bit through one gather; START and STOP
+    granules keep the natural (long) order. linbits: the grid quantizes up
+    to QCAP_LINBITS with the unfloored ISO step and prices the ESC tables;
+    the all-zero test at the initial gain keeps the floored table-15 law,
+    as the reference's does."""
     absx = torch.clamp(torch.abs(spectrum), min=1e-10)
     mag = torch.pow(absx, 0.75)
     if mag_scale is not None:
@@ -828,7 +1024,8 @@ def rate_loop_precompute_strict(
     sign_neg = spectrum < 0
     if iso_short:
         # mag >= 1e-10^0.75 > 0, so the sign round-trips exactly
-        perm = _rate_table("reorder", sample_rate, spectrum.device)[block.long()]
+        layout = torch.where(block > BLOCK_SHORT, BLOCK_LONG, block)
+        perm = _rate_table("reorder", sample_rate, spectrum.device)[layout.long()]
         signed = torch.gather(torch.where(sign_neg, -mag, mag), -1, perm)
         mag = torch.abs(signed)
         sign_neg = signed < 0
@@ -840,16 +1037,17 @@ def rate_loop_precompute_strict(
     k_budget = torch.where(allzero0, N_GAIN_CANDIDATES - 1, N_GAIN_CANDIDATES).to(_I32)
 
     k = torch.arange(N_GAIN_CANDIDATES, dtype=_I32, device=spectrum.device)
-    inv_table = inv_step_table(iso, spectrum.device)
+    inv_table = inv_step_table(iso, spectrum.device, floor=not linbits)
+    qcap = float(QCAP_LINBITS if linbits else 15)
     cols = []
     for a in range(N_GAIN_CANDIDATES):
         # unsigned quantize (bit counts are sign-invariant): the product and
         # the sum rounded separately, as the reference
         inv = inv_table[torch.clamp(gstart + 4 * a, max=255).long()]
-        q_abs = torch.clamp(torch.floor(mag * inv[..., None] + 0.5), max=15.0).to(_I32)
+        q_abs = torch.clamp(torch.floor(mag * inv[..., None] + 0.5), max=qcap).to(_I32)
         lay = strict_layout_device(
             q_abs, sample_rate, is_long, count1_coding, region_table_select,
-            assume_abs=True, b0_switch=b0_switch,
+            assume_abs=True, linbits=linbits, b0_switch=b0_switch,
         )
         cols.append(lay["bits"])
     bits = torch.stack(cols, dim=-1)
@@ -865,6 +1063,7 @@ def rate_loop_precompute_strict(
         "iso": iso,
         "strict": (sample_rate, count1_coding, region_table_select),
         "is_long": is_long,
+        "linbits": linbits,
     }
 
 
@@ -874,28 +1073,37 @@ def strict_finalize(
     """Re-quantize at the selected gains and lay them out (dsp.py:1739-1762).
     Returns (gain_reported, quantized, layout). q_fixup: a callable applied
     to the selected quantization before the layout (intensity stereo's
-    knife-edge zeroing, ROADMAP Queue 1 item 10)."""
+    knife-edge zeroing, ROADMAP Queue 1 item 10). The linbits law (the
+    sweep's "linbits") quantizes up to QCAP_LINBITS with the unfloored
+    step."""
     sample_rate, count1_coding, region_table_select = pre["strict"]
+    linbits = pre.get("linbits", False)
     gains_sel = pre["gstart"] + 4 * k_sel
     q_sel = quantize_at_gains(
-        pre["mag"], pre["sign_neg"], gains_sel[..., None], iso=pre["iso"]
+        pre["mag"], pre["sign_neg"], gains_sel[..., None], iso=pre["iso"],
+        qcap=QCAP_LINBITS if linbits else 15, floor=not linbits,
     )[..., 0, :]
     if q_fixup is not None:
         q_sel = q_fixup(q_sel)
     lay = strict_layout_device(
-        q_sel, sample_rate, pre["is_long"], count1_coding, region_table_select
+        q_sel, sample_rate, pre["is_long"], count1_coding, region_table_select,
+        linbits=linbits,
     )
     gain_out = torch.where(has_fit, gains_sel, torch.clamp(gains_sel + 4, max=255))
     return gain_out.to(_I32), q_sel, lay
 
 
-def strict_chunks_device(q: torch.Tensor, lay: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def strict_chunks_device(
+    q: torch.Tensor, lay: dict, linbits: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-slot (chunk, nbits) of the strict layout (dsp.py:1765-1879):
-    [..., 432] each, 288 pair slots (code, then the signs of nonzero x and
-    y) and 144 count1 quad slots, in write order; nbits 0 outside the coded
-    pairs and the count1 range."""
+    288 pair slots (code, then the signs of nonzero x and y) and 144 count1
+    quad slots, [..., 432] each, in write order; nbits 0 outside the coded
+    pairs and the count1 range. linbits: each pair takes three slots (code
+    | x's ESC bits and sign | y's ESC bits and sign), [..., 864 + 144], so
+    that no slot passes 14 bits (the pack kernel takes at most 15)."""
     dev = q.device
-    av = torch.clamp(torch.abs(q), max=15)
+    av = torch.clamp(torch.abs(q), max=QCAP_LINBITS if linbits else 15)
     x = av[..., 0::2]
     y = av[..., 1::2]
     sx = (q[..., 0::2] < 0).to(_I32)
@@ -904,17 +1112,34 @@ def strict_chunks_device(q: torch.Tensor, lay: dict) -> tuple[torch.Tensor, torc
     pairpos, region = _pair_regions(lay["b0"], lay["b1"])
     tid_pair = _pair_tids([lay["tid0"], lay["tid1"], lay["tid2"]], region)
     valid = (pairpos < bv2[..., None]) & (tid_pair != 0)
-    flat = (tid_pair * 256 + x * 16 + y).long()
+    flat = (tid_pair * 256 + _pair_index(x, y, linbits)).long()
     chunk = constant("pair_code", dev)[flat]
     nbits = constant("pair_len", dev)[flat]
-    has_x = x != 0
-    chunk = torch.where(has_x, (chunk << 1) | sx, chunk)
-    nbits = nbits + has_x.to(_I32)
-    has_y = y != 0
-    chunk = torch.where(has_y, (chunk << 1) | sy, chunk)
-    nbits = nbits + has_y.to(_I32)
-    pair_chunks = torch.where(valid, chunk, 0)
-    pair_nbits = torch.where(valid, nbits, 0)
+    has_x = (x != 0).to(_I32)
+    has_y = (y != 0).to(_I32)
+    if linbits:
+        lb = linbits_of_tid(tid_pair)
+        esc_x = (x >= 15) & (lb > 0)
+        esc_y = (y >= 15) & (lb > 0)
+        # an escaped coordinate's x - 15 in lb bits, then its sign
+        chunk_x = torch.where(esc_x, ((x - 15) << has_x) | (sx * has_x), sx * has_x)
+        nbits_x = esc_x.to(_I32) * lb + has_x
+        chunk_y = torch.where(esc_y, ((y - 15) << has_y) | (sy * has_y), sy * has_y)
+        nbits_y = esc_y.to(_I32) * lb + has_y
+        lead = chunk.shape[:-1]
+        pair_chunks = torch.where(
+            valid[..., None], torch.stack([chunk, chunk_x, chunk_y], dim=-1), 0
+        ).reshape(*lead, 864)
+        pair_nbits = torch.where(
+            valid[..., None], torch.stack([nbits, nbits_x, nbits_y], dim=-1), 0
+        ).reshape(*lead, 864)
+    else:
+        chunk = torch.where(has_x == 1, (chunk << 1) | sx, chunk)
+        nbits = nbits + has_x
+        chunk = torch.where(has_y == 1, (chunk << 1) | sy, chunk)
+        nbits = nbits + has_y
+        pair_chunks = torch.where(valid, chunk, 0)
+        pair_nbits = torch.where(valid, nbits, 0)
 
     use2 = (bv2 & 2) == 2
     quads = _count1_quads((av > 0).to(_I32), use2)

@@ -21,7 +21,7 @@ import torch
 from ..encoder import GAPLESS_DECODER_DELAY, GAPLESS_ENCODER_DELAY
 from ..models.pipeline import fetch_outputs, init_carry, make_chunk_fn, resolve_device
 from ..native import NativeStreamRenderer
-from ..options import MP3EncoderOptions
+from ..options import SAMPLES_PER_GRANULE, MP3EncoderOptions
 
 
 class BatchEncoder:
@@ -62,18 +62,33 @@ class BatchEncoder:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def prepare(self, pcm: np.ndarray, final: np.ndarray, valid: np.ndarray):
+    def prepare(
+        self, pcm: np.ndarray, final: np.ndarray, valid: np.ndarray, lookahead=None
+    ):
         """Start the host->device upload of a chunk's inputs; pass the
         result to step() so the transfer overlaps other work."""
-        return self._put(pcm), self._put(final), self._put(valid)
+        out = (self._put(pcm), self._put(final), self._put(valid))
+        if lookahead is not None:
+            out = out + (self._put(lookahead),)
+        return out
 
-    def step(self, pcm, final, valid) -> dict:
+    def step(self, pcm, final, valid, lookahead=None) -> dict:
         """Run one chunk. pcm: [B, T, 1152*ch] float32 or int16 (normalized
         by 1/32768 on the device); final/valid: [B, T] bool. Accepts numpy
-        arrays or the tensors from prepare(). Returns the outputs, their
+        arrays or the tensors from prepare(). Under window_sequencing,
+        `lookahead` [B, T, 576*ch] is required: each frame's next raw
+        granule, zeros past a stream's end. Returns the outputs, their
         device->host copy already in flight."""
+        la = None
+        if self.options.window_sequencing:
+            if lookahead is None:
+                raise ValueError(
+                    "window_sequencing needs the per-frame lookahead chunk "
+                    "[B, T, 576*ch] (each frame's next raw granule)"
+                )
+            la = self._put(lookahead)
         self.carry, outs = self._run(
-            self.carry, self._put(pcm), self._put(final), self._put(valid)
+            self.carry, self._put(pcm), self._put(final), self._put(valid), la
         )
         packed = outs["packed"]
         if not self._pinned:
@@ -145,6 +160,16 @@ def encode_batch(
             else np.asarray(s)
             for s in streams
         ]
+    la_len = SAMPLES_PER_GRANULE * ch if options.window_sequencing else 0
+    if la_len:
+        # window_sequencing: the session's one granule of encoder delay; each
+        # frame's lookahead granule comes from the delayed stream
+        streams = [
+            np.concatenate([np.zeros(la_len, dtype=np.asarray(s).dtype), np.asarray(s)])
+            if len(s)
+            else np.asarray(s)
+            for s in streams
+        ]
     B = n_streams
     lengths = np.array([len(s) for s in streams], dtype=np.int64)
     rem = lengths % frame_len
@@ -157,6 +182,12 @@ def encode_batch(
         else np.float32
     )
 
+    def segment(b: int, lo: int, hi: int) -> np.ndarray:
+        seg = np.asarray(streams[b][lo:hi])
+        if seg.dtype == np.int16 and pcm_dtype == np.float32:
+            seg = seg.astype(np.float32) / np.float32(32768.0)
+        return seg
+
     def build_chunk(start: int):
         count = min(Tc, T_total - start)
         pcm = np.zeros((B, Tc, frame_len), dtype=pcm_dtype)
@@ -167,17 +198,25 @@ def encode_batch(
             lo = start * frame_len
             hi = min((start + count) * frame_len, int(lengths[b]))
             if hi > lo:
-                seg = np.asarray(streams[b][lo:hi])
-                if seg.dtype == np.int16 and pcm_dtype == np.float32:
-                    seg = seg.astype(np.float32) / np.float32(32768.0)
                 nrows = (hi - lo + frame_len - 1) // frame_len
                 buf = np.zeros(nrows * frame_len, dtype=pcm_dtype)
-                buf[: hi - lo] = seg
+                buf[: hi - lo] = segment(b, lo, hi)
                 pcm[b, :nrows] = buf.reshape(nrows, frame_len)
-            # session flush parity: only a PARTIAL last frame is final
-            if rem[b] and start <= n_frames[b] - 1 < start + Tc:
+            # session flush parity: a partial last frame is final, and under
+            # window_sequencing (whose delay makes the flush emit at least
+            # one frame) every nonempty stream's last frame is
+            if (rem[b] or (la_len and lengths[b])) and start <= n_frames[b] - 1 < start + Tc:
                 final[b, int(n_frames[b] - 1 - start)] = True
-        return pcm, final, valid
+        if not la_len:
+            return pcm, final, valid, None
+        la = np.zeros((B, Tc, la_len), dtype=pcm_dtype)
+        for b in range(n_streams):
+            for t in range(count):
+                lo = (start + t + 1) * frame_len
+                hi = min(lo + la_len, int(lengths[b]))
+                if hi > lo:
+                    la[b, t, : hi - lo] = segment(b, lo, hi)
+        return pcm, final, valid, la
 
     out = [bytearray() for _ in range(n_streams)]
     if not n_streams:
@@ -190,14 +229,14 @@ def encode_batch(
         pending = None
         prepared = None
         if starts:
-            pcm, final, valid = build_chunk(starts[0])
-            prepared, prepared_valid = enc.prepare(pcm, final, valid), valid
+            pcm, final, valid, la = build_chunk(starts[0])
+            prepared, prepared_valid = enc.prepare(pcm, final, valid, la), valid
         for idx in range(len(starts)):
             outs = enc.step(*prepared)
             cur_valid = prepared_valid
             if idx + 1 < len(starts):
-                pcm, final, valid = build_chunk(starts[idx + 1])
-                prepared, prepared_valid = enc.prepare(pcm, final, valid), valid
+                pcm, final, valid, la = build_chunk(starts[idx + 1])
+                prepared, prepared_valid = enc.prepare(pcm, final, valid, la), valid
             if pending is not None:
                 for b, chunk in enumerate(enc.drain(*pending)):
                     out[b] += chunk

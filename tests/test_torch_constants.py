@@ -50,6 +50,22 @@ def test_mdct_fold(law):
     assert _bits_equal(port, jdsp._MDCT_FOLD[law])
 
 
+def test_mdct_transition_ratios():
+    # window_sequencing's START / STOP input ratios
+    assert _bits_equal(tdsp.MDCT_R_START, jdsp._MDCT_FOLD["r_start"])
+    assert _bits_equal(tdsp.MDCT_R_STOP, jdsp._MDCT_FOLD["r_stop"])
+
+
+def test_hq_constants_equal_the_reference():
+    from swiftmp3_tpu.ops import reference as jref
+    from swiftmp3_tpu_torch.models import pipeline as tpipe
+
+    assert tpipe.LINBITS_Q_TARGET == jref.LINBITS_Q_TARGET
+    assert tpipe.K_DEMAND == jref.K_DEMAND
+    assert (tdsp.ONSET_RATIO, tdsp.OFFSET_RATIO) == (jref.ONSET_RATIO, jref.OFFSET_RATIO)
+    assert (tdsp.BLOCK_START, tdsp.BLOCK_STOP) == (jdsp.BLOCK_START, jdsp.BLOCK_STOP)
+
+
 def test_sign_flat():
     assert _bits_equal(tdsp.SIGN_FLAT, jdsp._SIGN_FLAT)
 
@@ -60,6 +76,12 @@ def test_inverse_step_tables():
     assert _bits_equal(tdsp.INV_STEP, jdsp.inv_step_lookup(jnp.asarray(_G)))
     assert _bits_equal(tdsp.INV_STEP34, jdsp._INV_STEP34_NP)
     assert _bits_equal(tdsp.INV_STEP34, jdsp.inv_step34_lookup(jnp.asarray(_G)))
+    # the linbits law's step, without the 1e-4 floor
+    from swiftmp3_tpu.ops.reference import ISO_INV_STEP34_NOFLOOR
+
+    assert _bits_equal(tdsp.INV_STEP34_NOFLOOR, ISO_INV_STEP34_NOFLOOR)
+    got = jdsp.inv_step34_lookup(jnp.asarray(_G), floor=False)
+    assert _bits_equal(tdsp.INV_STEP34_NOFLOOR, got)
 
 
 def test_table15_lengths_and_codes():
@@ -85,6 +107,7 @@ def test_region_bounds(sr):
     [
         "window_rev", "matrix_rev_t", "poly_fold", "mdct_p", "mdct_c", "sign_flat", "inv_step",
         "t15_code", "mdct_p_iso", "mdct_c_iso", "pair_cost", "pair_code", "sf_mult34",
+        "mdct_r_start", "mdct_r_stop", "inv_step34_nofloor", "linbits_of_tid", "esc_bounds",
     ],
 )
 def test_device_constants_keep_their_bits(name):

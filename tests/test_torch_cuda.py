@@ -1,7 +1,8 @@
 """Card-only tests of the port: the hand-written CUDA kernels against their
-plain PyTorch versions (K2 also at the strict path's shapes and against the
-host packer on strict frames), and the port's entry points on a CUDA device
-against the same entry points on the CPU, compat and spec_strict.
+plain PyTorch versions (K2 also at the strict and hq paths' shapes, on the hq
+path's own input with frames past the cap, and against the host packer on
+strict frames), and the port's entry points on a CUDA device against the
+same entry points on the CPU, compat, spec_strict and hq.
 
 Every test here needs a CUDA card and skips without one (the kernels have no
 CPU mode). The file imports nothing of JAX and nothing of the JAX package, so
@@ -22,9 +23,11 @@ from swiftmp3_tpu_torch.parallel.batch import encode_batch
 
 from .torch_inputs import (
     COMPAT_FIXTURES,
+    HQ_OPTIONS,
     STRICT_FIXTURES,
     STRICT_OPTIONS,
     fixture_path,
+    hq_pack_input,
     knife_edge_sweep_input,
     make_signal,
     pack_input,
@@ -34,14 +37,17 @@ from .torch_inputs import (
 
 pytestmark = pytest.mark.cuda
 
-# the last two: the strict path's slots a frame, stereo and mono
+# the last four: the strict and the hq paths' slots a frame, stereo and mono
 PACK_SHAPES = [
     (16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160), (2048, 1152, 894),
-    (2048, 1872, 894), (2048, 936, 910),
+    (2048, 1872, 894), (2048, 936, 910), (2048, 4176, 894), (2048, 2088, 910),
 ]
 # frames whose bytes may differ between the card and the CPU: a float ULP in
 # the matmul or reduction order can move a quantization knife edge
 STRICT_CARD_FLIP_CEILING = 2
+# the hq law's knife edges are finer (peaks quantize near 2048) and a flipped
+# short want moves a window sequence: the telemetry rate, 24 of 78 frames
+HQ_CARD_FLIP_RATE = (24, 78)
 # (rows, T): the session chunk, 36T below one 256-position tile, a batch
 # chunk, two shapes with a ragged last tile (180 positions; 1044 = 4 tiles +
 # 20), and one whose blocks walk 2 tiles and 1 ragged tile (540 positions);
@@ -203,3 +209,43 @@ def test_batch_on_the_card_matches_cpu_sessions(cuda_device):
     for pcm, data in zip(streams, got):
         s = new_session(o, "cpu")
         assert data == s.encode(pcm) + s.flush()
+
+
+@pytest.mark.parametrize("mode", ["joint_stereo", "mono"])
+def test_pack_kernel_matches_plain_on_the_hq_path(cuda_device, mode):
+    """K2 on the pack input the hq chunk program gives it (P = 4176 in
+    stereo, 2088 in mono), and on the same slots twice over, so that every
+    frame runs past the cap and is truncated there."""
+    chunks, nbits, cap = hq_pack_input(cuda_device, B=4, T=4, mode=mode)
+    assert chunks.shape[1] == (4176 if mode == "joint_stereo" else 2088)
+    for c, n in ((chunks, nbits), (torch.cat([chunks] * 3, 1), torch.cat([nbits] * 3, 1))):
+        c, n = c.contiguous(), n.contiguous()
+        by, tot = kernels.pack(c, n, cap)
+        pby, ptot = kernels.pack_plain(c, n, cap)
+        assert torch.equal(by, pby) and torch.equal(tot, ptot)
+    assert (ptot > 8 * cap).any()
+
+
+def test_hq_step_on_the_card_matches_the_cpu(cuda_device):
+    """One BatchEncoder step of the hq preset (joint stereo) on the card,
+    rendered, against the same step on the CPU: the same frame structure,
+    bytes within the hq flip rate."""
+    from swiftmp3_tpu_torch.parallel.batch import BatchEncoder
+
+    from .torch_inputs import bench_audio, step_lookahead
+
+    o = MP3EncoderOptions.hq(**HQ_OPTIONS["hq_joint"])
+    B, T = 4, 16
+    audio = [bench_audio(np.random.default_rng(3), B, T, 2, 44100) for _ in range(2)]
+    final = np.zeros((B, T), bool)
+    valid = np.ones((B, T), bool)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        enc = BatchEncoder(o, B, T, dev)
+        outs = enc.step(audio[0], final, valid, step_lookahead(audio, 0, 2))
+        streams = enc.drain(outs, valid)
+        got[dev] = [a + b for a, b in zip(streams, enc.flush())]
+        enc.close()
+    num, den = HQ_CARD_FLIP_RATE
+    for card, cpu in zip(got["cuda"], got["cpu"]):
+        assert _flips(card, cpu) <= num * T // den

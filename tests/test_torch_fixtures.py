@@ -12,9 +12,12 @@ and their golden streams from files under `tests/fixtures/torch/`. Here:
   (`EncoderSession(options, backend="numpy")`) encodes from its input today,
   byte for byte, so the files stay pinned to the reference: under the main
   path's compat options and under the spec_strict preset
-  (`torch_inputs.STRICT_OPTIONS`).
+  (`torch_inputs.STRICT_OPTIONS`); of the hq presets' golden streams
+  (`torch_inputs.HQ_OPTIONS`), one short row is re-encoded here.
 
-Regenerate the frozen streams with `python -m tests.test_torch_fixtures`.
+Regenerate the compat and strict golden streams with
+`python -m tests.test_torch_fixtures`, the hq and JAX-backend files with
+`python -m tests.torch_freeze_fixtures`.
 """
 
 from __future__ import annotations
@@ -94,8 +97,13 @@ def test_golden_inputs_cover_the_frozen_files():
     main = _golden_inputs()["main_stream0"]
     assert main.dtype == np.int16 and main.shape == (ti.T_MAIN * 2304,)
     frozen = sorted(os.listdir(ti.TORCH_FIXTURE_DIR))
-    want = [os.path.basename(ti.golden_path(s, p)) for p in ("compat", "strict") for s in GOLDEN_STEMS]
-    assert frozen == sorted(want)
+    want = [ti.golden_path(s, p) for p in ("compat", "strict") for s in GOLDEN_STEMS]
+    for preset in ti.HQ_OPTIONS:
+        for stem in ti.hq_streams():
+            want += [ti.golden_path(stem, preset), ti.jax_path(f"{preset}_{stem}")]
+    want += [ti.jax_path(row[0]) for row in ti.STRICT_EXTRA_ROWS]
+    want += [ti.checkpoint_path(side) for side in ("jax", "port")]
+    assert frozen == sorted(os.path.basename(p) for p in want)
 
 
 @pytest.mark.parametrize("stem", GOLDEN_STEMS)
@@ -115,6 +123,35 @@ def test_strict_options_are_the_telemetry_preset():
 
     want = {name: make for name, _, make, _ in _CONFIGS}["strict"]()
     assert _golden_options("strict") == want
+
+
+def _hq_options(preset: str) -> MP3EncoderOptions:
+    return MP3EncoderOptions.hq(**dict(ti.HQ_OPTIONS[preset], mode=Mode(ti.HQ_OPTIONS[preset]["mode"])))
+
+
+def test_hq_options_are_the_telemetry_and_bench_configurations():
+    from .test_ulp_telemetry import _CONFIGS
+
+    want = {name: make for name, _, make, _ in _CONFIGS}["hq"]()
+    assert _hq_options("hq_joint") == want
+    # bench.py's hq cell (bench.py:163-165)
+    assert _hq_options("hq_stereo") == MP3EncoderOptions.hq(
+        mode=Mode.STEREO, bitrate_kbps=128, sample_rate=44100
+    )
+
+
+def test_hq_rows_are_the_strict_rows_signals():
+    assert [r[1:] for r in ti.HQ_ROWS] == [r[2:] for r in ti.STRICT_FIXTURES]
+    assert len(set(ti.hq_streams())) == len(ti.HQ_ROWS) + 6
+
+
+def test_frozen_hq_golden_stream_is_the_golden_encoders():
+    """One short row (13 frames): the joint-stereo hq stream of the tonal
+    corpus class."""
+    pcm = ti.hq_streams()["corpus_tonal"]
+    s = EncoderSession(_hq_options("hq_joint"), backend="numpy")
+    with open(ti.golden_path("corpus_tonal", "hq_joint"), "rb") as fh:
+        assert fh.read() == s.encode(pcm) + s.flush()
 
 
 if __name__ == "__main__":

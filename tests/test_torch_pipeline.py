@@ -245,34 +245,41 @@ def test_carry_from_jax_conversions():
     old["has_buffered"] = np.array([True, False])
     fifo = tpipe.carry_from_jax(old, CPU)["slot_fifo"]
     assert fifo.tolist() == [[417], [0]]
-    with pytest.raises(NotImplementedError):
-        tpipe.carry_from_jax({**state, "seq_prev_short": np.zeros(2, bool)}, CPU)
+    # a window-sequencing checkpoint from before the raw-want and block-energy
+    # carries gets zeros and +inf (no past), as the JAX backend converts it
+    seq = tpipe.carry_from_jax({**state, "seq_prev_short": np.array([True, False])}, CPU)
+    assert seq["seq_prev_want"].tolist() == [False, False]
+    assert seq["onset_prev2"].shape == (2, 2, 2) and torch.isinf(seq["onset_prev2"]).all()
+    # keys of no carry, or a sequencing carry for a session without it, raise
+    with pytest.raises(ValueError):
+        tpipe.carry_from_jax({**state, "prev_granule": np.zeros(2, bool)}, CPU)
+    with pytest.raises(ValueError):
+        tpipe.carry_from_jax(tpipe.carry_to_jax(seq), CPU, MP3EncoderOptions(mode="stereo"))
 
 
-# the spec_strict flags the options validation asks the later items' flags for
-_STRICT_FLAGS = dict(
-    reservoir_mode="aligned", iso_quantization=True, count1_coding=True,
-    region_table_select=True, real_scalefactors=True, iso_short_blocks=True,
-)
-
-
+# Each case is a flag the port does not run yet, at a configuration where the
+# reference's chunk program reads it, and the ROADMAP Queue 1 item named in
+# the error. "hq" builds the options with MP3EncoderOptions.hq.
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(linbits_tables=True, **_STRICT_FLAGS),
-        dict(window_sequencing=True, **_STRICT_FLAGS),
-        dict(distortion_control=True, linbits_tables=True, **_STRICT_FLAGS),
-        dict(intensity_stereo=True, mode="joint_stereo", iso_mode_ext=True, **_STRICT_FLAGS),
-        dict(lowpass_hz=10000),
-        dict(reservoir_mode="aligned", reservoir_depth=2),
-        dict(free_format=True, bitrate_kbps=100),
-        dict(sample_rate=22050, iso_quantization=True, reservoir_mode="aligned"),
+        dict(vbr=True, vbr_demand=True, hq=True, item=8),
+        dict(lowpass_hz=10000, adaptive_lowpass=True, hq=True, item=8),
+        dict(distortion_control=True, mode="mono", hq=True, item=9),
+        dict(intensity_stereo=True, mode="joint_stereo", bitrate_kbps=32, lowpass_hz=None,
+             hq=True, item=10),
+        dict(lowpass_hz=10000, item=8),
+        dict(reservoir_mode="aligned", reservoir_depth=2, item=8),
+        dict(free_format=True, bitrate_kbps=100, item=11),
+        dict(sample_rate=22050, iso_quantization=True, reservoir_mode="aligned", item=11),
     ],
-    ids=lambda kw: ",".join(kw),
+    ids=lambda kw: ",".join(k for k in kw if k != "item"),
 )
 def test_unsupported_options_raise(kw):
-    o = MP3EncoderOptions(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    kw = dict(kw)
+    item = kw.pop("item")
+    o = MP3EncoderOptions.hq(**kw) if kw.pop("hq", False) else MP3EncoderOptions(**kw)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}\\)"):
         new_session(o, CPU)
     with pytest.raises(NotImplementedError):
         BatchEncoder(o, 2, 4, CPU)
@@ -309,8 +316,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_hq_preset_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpipe.make_chunk_fn(MP3EncoderOptions.hq())
+    """The hq preset runs at 128 kbps; at 96 kbps and below it engages the
+    rate-derived adaptive lowpass, which is still item 8."""
+    tpipe.make_chunk_fn(MP3EncoderOptions.hq())
+    with pytest.raises(NotImplementedError, match="adaptive_lowpass .* item 8"):
+        tpipe.make_chunk_fn(MP3EncoderOptions.hq(bitrate_kbps=96))
 
 
 def test_import_loads_no_jax():

@@ -28,6 +28,13 @@ B_MAIN, T_MAIN = 256, 128
 # The strict main path: MP3EncoderOptions.spec_strict(**STRICT_OPTIONS), the
 # configuration tests/test_ulp_telemetry.py pins for the preset.
 STRICT_OPTIONS = dict(mode="joint_stereo", bitrate_kbps=128, sample_rate=44100)
+# The hq paths: MP3EncoderOptions.hq(**HQ_OPTIONS[preset]), joint stereo (the
+# configuration tests/test_ulp_telemetry.py pins for the preset) and stereo
+# (bench.py's hq cell), both 128 kbps at 44.1 kHz.
+HQ_OPTIONS = {
+    "hq_joint": dict(mode="joint_stereo", bitrate_kbps=128, sample_rate=44100),
+    "hq_stereo": dict(mode="stereo", bitrate_kbps=128, sample_rate=44100),
+}
 
 
 def sweep_input(n: int = 37, seed: int = 7):
@@ -90,6 +97,63 @@ def strict_pack_input(device, B: int = 2, T: int = 2, seed: int = 0, mode: str =
     finally:
         kernels.pack = pack
     return seen[0]
+
+
+def hq_pack_input(device, B: int = 2, T: int = 2, seed: int = 0, mode: str = "joint_stereo"):
+    """The main_data pack's input on the hq path: the (chunks, nbits)
+    [B*T, P] the port's hq chunk program hands `kernels.pack` (36
+    scalefactor slots, 3 x 288 linbits pair slots and 144 quad slots a
+    granule, so P = 4176 in stereo and 2088 in mono), and the cap, for B
+    streams of T frames of loud correlated noise with attacks on `device`
+    (each frame's lookahead the next frame's first granule)."""
+    import torch
+
+    from swiftmp3_tpu_torch.models import pipeline
+    from swiftmp3_tpu_torch.ops import kernels
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+
+    o = MP3EncoderOptions.hq(**dict(HQ_OPTIONS["hq_joint"], mode=mode))
+    n = 1152 * o.channels
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, (T + 1) * n)).astype(np.float32) * 0.3
+    for i in range(1, 5):
+        x[:, i:] += x[:, :-i] / (i + 1)
+    x[:, 700:800] *= 3.0  # attacks: short granules and their scalefactors
+    frames = x[:, : T * n].reshape(B, T, n)
+    la = np.stack([x[:, (t + 1) * n : (t + 1) * n + n // 2] for t in range(T)], axis=1)
+    seen = []
+    pack = kernels.pack
+
+    def record(chunks, nbits, cap):
+        seen.append((chunks.clone(), nbits.clone(), cap))
+        return pack(chunks, nbits, cap)
+
+    kernels.pack = record
+    try:
+        pipeline.make_chunk_fn(o)(
+            pipeline.init_carry(B, o, device),
+            torch.from_numpy(frames).to(device),
+            torch.zeros((B, T), dtype=torch.bool, device=device),
+            torch.ones((B, T), dtype=torch.bool, device=device),
+            torch.from_numpy(la).to(device),
+        )
+    finally:
+        kernels.pack = pack
+    return seen[0]
+
+
+def step_lookahead(audio: list, k: int, channels: int) -> np.ndarray:
+    """The window-sequencing lookahead of step k of chained steps of audio
+    [B, T, 1152*ch] (bench.py:168-175): each frame's next raw granule, the
+    last frame's from the next step's first frame (zeros after the last
+    step)."""
+    la_n = 576 * channels
+    pcm = audio[k]
+    la = np.zeros(pcm.shape[:2] + (la_n,), dtype=pcm.dtype)
+    la[:, :-1] = pcm[:, 1:, :la_n]
+    if k + 1 < len(audio):
+        la[:, -1] = audio[k + 1][:, 0, :la_n]
+    return la
 
 
 def polyphase_input(B: int = 3, ch: int = 2, T: int = 8, seed: int = 0):
@@ -293,6 +357,104 @@ STRICT_FIXTURES = [
 ]
 
 
+# The hq fixture rows: the signals of the 4 strict rows (kind, seconds, seed),
+# stereo at 44.1 kHz, encoded under each hq configuration.
+HQ_ROWS = [(f"row_{name[len('strict_'):]}", kind, seconds, seed)
+           for name, _, kind, seconds, seed in STRICT_FIXTURES]
+
+# Five more strict configurations whose JAX-backend bytes are frozen under
+# tests/fixtures/torch/ (jax_<name>.mp3): (name, options kwargs, preset,
+# signal kind, seconds, seed); preset "spec_strict" builds the options with
+# MP3EncoderOptions.spec_strict(**kwargs), None with MP3EncoderOptions(**kwargs).
+STRICT_EXTRA_ROWS = [
+    ("strict_vbr_q3_joint_44k_mix",
+     dict(mode="joint_stereo", vbr=True, quality=3), "spec_strict", "mix", 0.40, 31),
+    ("strict_mono_64k_32k_noise",
+     dict(mode="mono", bitrate_kbps=64, sample_rate=32000), "spec_strict", "noise", 0.45, 32),
+    ("strict_scfsi_psy_crc_joint_44k_burst",
+     dict(mode="joint_stereo", scfsi=True, psy_scalefactors=True, crc_protected=True),
+     "spec_strict", "burst", 0.40, 33),
+    ("strict_noshort_stereo_48k_burst",
+     dict(mode="stereo", sample_rate=48000, iso_short_blocks=False), "spec_strict", "burst",
+     0.37, 34),
+    ("strict_entropy_compat_reservoir_stereo_44k_mix",
+     dict(mode="stereo", count1_coding=True, region_table_select=True), None, "mix", 0.40, 35),
+]
+
+
+def hq_streams() -> dict:
+    """Every input whose hq streams are frozen under tests/fixtures/torch/
+    (golden_<preset>_<stem>.mp3 from the golden encoder, jax_<preset>_<stem>.mp3
+    from the JAX backend, for each preset of HQ_OPTIONS): {stem: PCM}, the
+    HQ_ROWS signals and the telemetry corpus, interleaved stereo float32."""
+    out = {stem: make_signal(kind, seconds, 44100, 2, seed) for stem, kind, seconds, seed in HQ_ROWS}
+    out.update({f"corpus_{k}": pcm for k, pcm in corpus_stereo().items()})
+    return out
+
+
+def jax_path(stem: str) -> str:
+    """The JAX backend's frozen stream of `stem` (jax_<stem>.mp3)."""
+    return os.path.join(TORCH_FIXTURE_DIR, f"jax_{stem}.mp3")
+
+
+# A checkpoint in the middle of an hq stream: the corpus class, the preset and
+# the sample at which the stream is cut.
+HQ_CHECKPOINT = ("corpus_tonal", "hq_joint", 2 * 1152 * 6 + 500)
+
+
+def checkpoint_path(side: str) -> str:
+    """The frozen session checkpoint of HQ_CHECKPOINT taken by `side` ("jax"
+    or "port"), with the bytes emitted before the cut."""
+    return os.path.join(TORCH_FIXTURE_DIR, f"checkpoint_{side}_{HQ_CHECKPOINT[1]}.npz")
+
+
+def save_session_state(path: str, state: dict, **extra) -> None:
+    """An EncoderSession.state_dict() (either package's) as an .npz of plain
+    arrays; `extra` arrays ride along."""
+    heads = list(state["buffered_heads"])
+    arrays = {
+        "pcm": np.asarray(state["pcm"], np.float32),
+        "fed": np.asarray(state["fed"]),
+        "fed_samples": np.asarray(state["fed_samples"], np.int64),
+        "reservoir_stream": np.frombuffer(bytes(state["reservoir_stream"]), np.uint8),
+        "reservoir_avail": np.asarray(state["reservoir_avail"], np.int64),
+        "buffered_heads": np.frombuffer(b"".join(heads), np.uint8),
+        "buffered_head_sizes": np.asarray([len(h) for h in heads], np.int64),
+        "buffered_slots": np.asarray(state["buffered_slots"], np.int64),
+        "frame_count": np.asarray(state["frame_count"], np.int64),
+        "total_bytes": np.asarray(state["total_bytes"], np.int64),
+        "frame_sizes": np.asarray(state["frame_sizes"], np.int64),
+        **{f"backend.{k}": np.asarray(v) for k, v in state["backend"].items()},
+        **{f"extra.{k}": np.asarray(v) for k, v in extra.items()},
+    }
+    np.savez(path, **arrays)
+
+
+def load_session_state(path: str) -> tuple[dict, dict]:
+    """(state_dict, extra arrays) saved by save_session_state."""
+    z = np.load(path)
+    heads, o = [], 0
+    blob = z["buffered_heads"].tobytes()
+    for n in z["buffered_head_sizes"].tolist():
+        heads.append(blob[o : o + n])
+        o += n
+    state = {
+        "pcm": z["pcm"],
+        "fed": bool(z["fed"]),
+        "fed_samples": int(z["fed_samples"]),
+        "reservoir_stream": z["reservoir_stream"].tobytes(),
+        "reservoir_avail": int(z["reservoir_avail"]),
+        "buffered_heads": heads,
+        "buffered_slots": z["buffered_slots"].tolist(),
+        "frame_count": int(z["frame_count"]),
+        "total_bytes": int(z["total_bytes"]),
+        "frame_sizes": z["frame_sizes"].tolist(),
+        "backend": {k[len("backend."):]: z[k] for k in z.files if k.startswith("backend.")},
+    }
+    extra = {k[len("extra."):]: z[k] for k in z.files if k.startswith("extra.")}
+    return state, extra
+
+
 def fixture_path(name: str, backend: str) -> str:
     """A committed reference stream, tests/fixtures/<name>.<backend>.mp3."""
     return os.path.join(FIXTURE_DIR, f"{name}.{backend}.mp3")
@@ -381,6 +543,7 @@ def golden_streams(main_audio: np.ndarray = None) -> dict:
 
 def golden_path(stem: str, preset: str = "compat") -> str:
     """The frozen golden stream of `stem`: under MAIN_OPTIONS (preset
-    "compat") or MP3EncoderOptions.spec_strict(**STRICT_OPTIONS) ("strict")."""
+    "compat"), MP3EncoderOptions.spec_strict(**STRICT_OPTIONS) ("strict") or
+    MP3EncoderOptions.hq(**HQ_OPTIONS[preset]) ("hq_joint", "hq_stereo")."""
     prefix = "golden_" if preset == "compat" else f"golden_{preset}_"
     return os.path.join(TORCH_FIXTURE_DIR, f"{prefix}{stem}.mp3")

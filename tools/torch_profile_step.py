@@ -3,20 +3,23 @@
 
     python3 tools/torch_profile_step.py            # the compat main path
     python3 tools/torch_profile_step.py --strict   # the spec_strict path
+    python3 tools/torch_profile_step.py --hq       # the hq path
 
 Runs the port's BatchEncoder at the main path's shape (256 streams x 128
 frames, bench audio; 128 kbps CBR stereo 44.1 kHz, or with --strict
-MP3EncoderOptions.spec_strict(joint stereo, 128 kbps, 44.1 kHz)) for two
-warm-up steps, then:
+MP3EncoderOptions.spec_strict(joint stereo, 128 kbps, 44.1 kHz), or with
+--hq MP3EncoderOptions.hq(joint stereo, 128 kbps, 44.1 kHz), each frame's
+lookahead granule built as bench.py builds it) for two warm-up steps, then:
 
   1. phase wall times of one step, with a device synchronise at each phase
      boundary. Compat: phase 1 up to and including the rate sweep, the
      integer loop over T, and phase 3 (finalize, pack, output assembly,
-     carry-out). Strict: phase 1 up to the scalefactors, the scalefactors
-     and gains, the strict sweep (and the share of it inside the entropy
-     layout), the loop over T, finalize, the second loop and the chunks,
-     the pack, and the output assembly;
-  2. (strict) CUDA-event device times of the strict sweep and of one
+     carry-out). Strict and hq: ingest, stereo decision and filterbank,
+     (hq) the window sequencing, the MDCT, the scalefactors and gains, the
+     strict sweep (and the share of it inside the entropy layout), the loop
+     over T, finalize, the second loop and the chunks, the pack, and the
+     output assembly;
+  2. (strict, hq) CUDA-event device times of the strict sweep and of one
      entropy layout on that step's own inputs;
   3. torch.profiler over one more step: device time by kernel, the number
      of kernel launches, and the device's busy share of the step;
@@ -112,7 +115,7 @@ def _instrument(marks: dict, captured: dict, strict: bool):
 
     if strict:
         points = [
-            (dsp, "granule_scalefactors_device", "sf_start", None),
+            (dsp, "mdct_chunk", "mdct_start", "mdct_end"),
             (dsp, "rate_loop_precompute_strict", "sweep_start", "sweep_end"),
             (dsp, "strict_finalize", "loop_end", "finalize_end"),
             (kernels, "pack", "pack_start", "pack_end"),
@@ -133,7 +136,7 @@ def _instrument(marks: dict, captured: dict, strict: bool):
             torch.cuda.synchronize()
             t = time.perf_counter()
             if before:
-                marks[before] = t
+                marks.setdefault(before, t)
             out = fn(*a, **kw)
             torch.cuda.synchronize()
             if after:
@@ -148,6 +151,7 @@ def _instrument(marks: dict, captured: dict, strict: bool):
         wrap(*point)
     if strict:
         wrap(dsp, "strict_layout_device", None, None)
+        wrap(dsp, "onset_wants_chunk", "seq_start", None)
 
     def undo():
         for mod, name, fn in saved:
@@ -160,20 +164,31 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
-    strict = "--strict" in (sys.argv[1:] if argv is None else argv)
+    args = sys.argv[1:] if argv is None else argv
+    hq = "--hq" in args
+    strict = hq or "--strict" in args
+    name = "hq" if hq else "strict" if strict else "compat"
 
     from swiftmp3_tpu_torch.ops import dsp
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
     from swiftmp3_tpu_torch.parallel.batch import BatchEncoder
     from tests.torch_inputs import B_MAIN as B
     from tests.torch_inputs import T_MAIN as T
-    from tests.torch_inputs import MAIN_OPTIONS, STRICT_OPTIONS, bench_audio
+    from tests.torch_inputs import (
+        HQ_OPTIONS,
+        MAIN_OPTIONS,
+        STRICT_OPTIONS,
+        bench_audio,
+        step_lookahead,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    if strict:
+    if hq:
+        opts = MP3EncoderOptions.hq(**HQ_OPTIONS["hq_joint"])
+    elif strict:
         opts = MP3EncoderOptions.spec_strict(**STRICT_OPTIONS)
     else:
         opts = MP3EncoderOptions(**MAIN_OPTIONS)
@@ -182,9 +197,14 @@ def main(argv=None) -> int:
     final = np.zeros((B, T), bool)
     valid = np.ones((B, T), bool)
     enc = BatchEncoder(opts, B, T)
+
+    def step(k):
+        la = step_lookahead(audio, k, 2) if hq else None
+        return enc.step(audio[k], final, valid, la)
+
     try:
         for k in range(2):
-            enc.drain(enc.step(audio[k], final, valid), valid)
+            enc.drain(step(k), valid)
 
         # 1. phase wall times (synchronised boundaries)
         marks, captured = {}, {}
@@ -192,7 +212,7 @@ def main(argv=None) -> int:
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            outs = enc.step(audio[2], final, valid)
+            outs = step(2)
             outs["ready"].synchronize()
             t1 = time.perf_counter()
         finally:
@@ -203,8 +223,15 @@ def main(argv=None) -> int:
         if strict:
             sweep = ms("sweep_start", "sweep_end")
             layout = marks["layout_s"] * 1e3
-            print(f"[phases] strict B={B} T={T} {card}: ingest..MDCT {ms('t0', 'sf_start'):.2f} ms, "
-                  f"scalefactors+gains {ms('sf_start', 'sweep_start'):.2f} ms, strict sweep "
+            front = (
+                f"ingest+filterbank {ms('t0', 'seq_start'):.2f} ms, window sequencing "
+                f"{ms('seq_start', 'mdct_start'):.2f} ms"
+                if hq
+                else f"ingest+filterbank {ms('t0', 'mdct_start'):.2f} ms"
+            )
+            print(f"[phases] {name} B={B} T={T} {card}: {front}, MDCT "
+                  f"{ms('mdct_start', 'mdct_end'):.2f} ms, "
+                  f"scalefactors+gains {ms('mdct_end', 'sweep_start'):.2f} ms, strict sweep "
                   f"{sweep:.2f} ms (entropy layout {layout:.2f} ms of it, "
                   f"{100 * layout / sweep:.1f}%), loop over T {ms('sweep_end', 'loop_end'):.2f} ms, "
                   f"finalize {ms('loop_end', 'finalize_end'):.2f} ms, second loop+chunks "
@@ -216,7 +243,7 @@ def main(argv=None) -> int:
             sweep_ms = cuda_ms(lambda: dsp.rate_loop_precompute_strict(*a, **kw), reps=3, warmup=1)
             a, kw = captured["strict_layout_device"]
             layout_ms = cuda_ms(lambda: dsp.strict_layout_device(*a, **kw), reps=10)
-            print(f"[sweep] strict sweep {sweep_ms:.2f} ms device (20 gains), one entropy layout "
+            print(f"[sweep] {name} sweep {sweep_ms:.2f} ms device (20 gains), one entropy layout "
                   f"{layout_ms:.3f} ms ({100 * 20 * layout_ms / sweep_ms:.1f}% of the sweep at 20 "
                   f"layouts), {card}", flush=True)
             captured.clear()
@@ -232,7 +259,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            outs = enc.step(audio[3], final, valid)
+            outs = step(3)
             outs["ready"].synchronize()
             wall = time.perf_counter() - t0
         enc.drain(outs, valid)
@@ -244,7 +271,7 @@ def main(argv=None) -> int:
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
     ]
     busy_us = sum(e.device_time_total for e in kernel_events)
-    print(f"[profile] {'strict ' if strict else ''}step wall {wall * 1e3:.2f} ms, "
+    print(f"[profile] {name} step wall {wall * 1e3:.2f} ms, "
           f"{len(kernel_events)} device events, device busy {busy_us / 1e3:.2f} ms "
           f"({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of the step), {card}", flush=True)
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=25))
