@@ -20,13 +20,14 @@ reference streams are committed files). Phases:
      K3, the filterbank stage of tools/torch_profile_step.py, with launch
      counts read around it, and K3's time as a share of its bound;
   4. the main path: BatchEncoder at 256 streams x 128 frames, 128 kbps CBR
-     stereo 44.1 kHz, 3 steps of unique int16 audio rendered to bytes, with
+     stereo 44.1 kHz, 2 steps of unique int16 audio rendered to bytes, with
      launch counts read around it; every stream's frame walk is checked;
   4b. the strict path: BatchEncoder at MP3EncoderOptions.spec_strict(joint
      stereo, 128 kbps, 44.1 kHz), 256 streams x 128 frames, 2 steps of the
      same audio, launch counts read around it, every frame walk checked;
      then K2 against its plain version, bit-exact, on the pack input the
-     strict path gave it (P = 1872 slots a frame), with its time and bound;
+     strict path gave it (P = 1872 slots a frame) and on the same slots
+     three times over (frames past the cap), with its time and bound;
   4c. the hq paths: BatchEncoder at MP3EncoderOptions.hq(joint stereo, 128
      kbps, 44.1 kHz), 256 streams x 128 frames, 2 steps of the same audio
      with each frame's lookahead granule (built as bench.py builds it), and
@@ -35,6 +36,32 @@ reference streams are committed files). Phases:
      version, bit-exact, on the pack input the hq path gave it (P = 4176
      slots a frame) and on the same slots three times over (every frame past
      the cap), with its time, bound and share;
+  4d. serving ([serve]): a StreamPool at bench.py's serving configuration
+     (128 kbps CBR stereo 44.1 kHz, 64 lanes x 32 frames a step), unique
+     int16 noise feeds (bench.py's: seed 7, normal x 4000), one warm step
+     and SERVE_STEPS timed steps (median, min, max), launch counts read
+     around them, every stream's frame walk checked after closing; then the
+     step's attribution as bench.py makes it: chained compute over resident
+     inputs (CUDA events), the pinned int16 upload, one drain of a ready
+     chunk; then K1 and K2 against their plain versions, bit-exact, on the
+     inputs the pool gave them (8192 granules; P = 1152 slots a frame, and
+     those slots three times over), with their times and bounds;
+  4e. lane churn ([serve churn]): a pipelined pool at the serving shape that
+     recycles lanes (1.5 x lanes streams, mixed lengths and dtypes, some
+     drip-fed, some closed empty), a sample of streams (the recycled lanes'
+     among them) byte-equal to sessions on the card; then a smaller
+     hq(stereo, 128 kbps) pool, window sequencing's preroll and holdback,
+     pipelined and synchronous, every stream byte-equal to its session and
+     the two modes' streams equal;
+  4f. files ([corpus], [cli]): encode_corpus on the card equal to ID3 + Xing
+     + session bytes, and the command line's file for the frozen WAV input,
+     each against the JAX package's frozen file (structure, flips pinned);
+  4g. hq at 96 kbps ([hq96]): BatchEncoder at MP3EncoderOptions.hq(joint
+     stereo, 96 kbps, 44.1 kHz), the preset's own adaptive lowpass, 256
+     streams x 128 frames, 2 steps, then K2 bit-exact on that path's pack
+     input; demand VBR and reservoir depth 3 ([hq flags]), one step each at
+     the same width (mono), K2 bit-exact on each one's pack input, past the
+     cap too;
   5. parity: the 8 compat fixture rows through new_session(o) against the
      JAX backend's committed streams (tests/fixtures/*.tpu.mp3), and 2
      main-path streams and the ULP-telemetry corpus against the golden numpy
@@ -42,10 +69,13 @@ reference streams are committed files). Phases:
      byte flips pinned; the same for the 4 strict fixture rows and the
      golden strict streams; for each hq configuration, the hq fixture rows
      and the corpus against the JAX backend's frozen bytes and the corpus
-     against the golden encoder's frozen hq streams;
-  6. a `kernels` JSON line (K1 and K2 as the compat main path launched
-     them, K3 as the filterbank stage did), the card line, and the result
-     line.
+     against the golden encoder's frozen hq streams; the hq flag
+     configurations' rows against the JAX backend's frozen bytes and demand
+     VBR's corpus against the golden encoder's ([parity hq flags]);
+  6. a `kernels` JSON line (K1 and K2 as the compat main path and the
+     serving pool launched them, K3 as the filterbank stage did), the card
+     line, and the result line. Each phase's wall time is printed
+     ([time]).
 
 Each kernel's bound_ms is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its lane operations over 33.5 T/s (the
@@ -89,10 +119,34 @@ STRICT_TELEMETRY_FLIP_CEILING = 16
 # fixture rows (64 frames) and the corpus.
 HQ_GOLDEN_FLIP_CEILING = {"hq_joint": 24, "hq_stereo": 50}
 HQ_JAX_FLIP_RATE = (24, 78)
+# demand VBR's corpus against the golden encoder's (78 frames): the JAX
+# backend's ceiling in tests/test_ulp_telemetry.py (it measured 12/78)
+VBR_DEMAND_GOLDEN_FLIP_CEILING = 20
+# The hq flag rows against the JAX backend's frozen bytes, with the port's
+# CPU filterbank and MDCT in place of the card's (the card's sum in another
+# order, which moves linbits knife edges in whole mono streams): the frames
+# the port's CPU session differs in too (tests/test_torch_hq_flags.py
+# KNIFE_EDGE_ROWS), and no other.
+HQ_FLAG_CPU_FILTERBANK_FLIPS = {"hq_joint_96k_corpus_burst": 1, "hq_mono_96k_depth3_sparse": 1}
+# The same rows on the card's own filterbank and MDCT against the JAX
+# backend's frozen bytes, per configuration: the frames the card differed in
+# (H100 80GB HBM3, 700 W: 31/78, 0/78, 20/78, 18/78, 10/17) under the
+# telemetry suite's rule max(2x, +2); depth 3's 17 frames take +2 alone, as 2x
+# would pass every frame.
+HQ_FLAG_JAX_FLIP_CEILING = {
+    "hq_mono_96k": 62,
+    "hq_joint_96k": 2,
+    "hq_mono_lowpass10k": 40,
+    "hq_vbr_demand_q5": 36,
+    "hq_mono_96k_depth3": 12,
+}
 
-STEPS_MAIN = 3
+STEPS_MAIN = 2
 STEPS_STRICT = 2
 STEPS_HQ = 2  # joint stereo; stereo takes one
+STEPS_HQ96 = 2
+# bench.py's serving cell (bench.py:207-226)
+SERVE_LANES, SERVE_FRAMES, SERVE_STEPS = 64, 32, 10
 K3_TOLERANCE = 2e-5  # tests/test_pallas.py, the JAX package's own for K3
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -112,6 +166,117 @@ def _frames(data: bytes) -> list[bytes]:
     from tests.util import parse_frames
 
     return [data[f.offset : f.offset + f.size] for f in parse_frames(data)]
+
+
+def _split_id3(data: bytes) -> tuple[bytes, bytes]:
+    """(the ID3v2 tag, the frames after it) of a complete file."""
+    if data[:3] != b"ID3":
+        return b"", data
+    size = (data[6] & 0x7F) << 21 | (data[7] & 0x7F) << 14 | (data[8] & 0x7F) << 7 | data[9] & 0x7F
+    return data[: 10 + size], data[10 + size :]
+
+
+def _compare_files(got: bytes, ref: bytes, what: str) -> int:
+    """Equal ID3 tags, then _compare_streams on the frames (Xing first)."""
+    (tag_g, body_g), (tag_r, body_r) = _split_id3(got), _split_id3(ref)
+    if tag_g != tag_r:
+        raise AssertionError(f"{what}: ID3 tags differ")
+    return _compare_streams(body_g, body_r, what)
+
+
+class _CpuFilterbank:
+    """Within it, the chunk program runs its filterbank and MDCT on the CPU
+    (the port's plain versions, the CPU session's float order) and every
+    other op on the card."""
+
+    def __enter__(self):
+        from swiftmp3_tpu_torch.ops import dsp
+
+        self.dsp, self.saved = dsp, (dsp.polyphase_chunk_matmul, dsp.mdct_chunk)
+        pm, md = self.saved
+
+        def pm_cpu(hist, pcm):
+            return tuple(x.to(hist.device) for x in pm(hist.cpu(), pcm.cpu()))
+
+        def md_cpu(S, overlap, block, *args, **kwargs):
+            return tuple(x.to(S.device) for x in md(S.cpu(), overlap.cpu(), block.cpu(), *args, **kwargs))
+
+        dsp.polyphase_chunk_matmul, dsp.mdct_chunk = pm_cpu, md_cpu
+        return self
+
+    def __exit__(self, *exc):
+        self.dsp.polyphase_chunk_matmul, self.dsp.mdct_chunk = self.saved
+
+
+class _FirstInputs:
+    """Within it, the wrappers kernels.rate_sweep and kernels.pack keep a
+    copy of their first call's inputs, `sweep` (mag, gstart, iso) and `pack`
+    (chunks, nbits, cap), and launch and count as before."""
+
+    def __enter__(self):
+        from swiftmp3_tpu_torch.ops import kernels
+
+        self.kernels, self.saved = kernels, (kernels.rate_sweep, kernels.pack)
+        self.sweep = self.pack = None
+        sweep, pack = self.saved
+
+        def rec_sweep(mag, gstart, iso=False):
+            if self.sweep is None:
+                self.sweep = (mag.clone(), gstart.clone(), iso)
+            return sweep(mag, gstart, iso=iso)
+
+        def rec_pack(chunks, nbits, cap):
+            if self.pack is None:
+                self.pack = (chunks.clone(), nbits.clone(), cap)
+            return pack(chunks, nbits, cap)
+
+        kernels.rate_sweep, kernels.pack = rec_sweep, rec_pack
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.rate_sweep, self.kernels.pack = self.saved
+
+
+def _sweep_bound(n: int) -> tuple[float, str]:
+    """K1's bound over n granules: read mag and gstart, write bits and bv;
+    per granule and gain 576 x (multiply, add, floor, min, convert) + 288 x
+    (index, lookup, add, max)."""
+    return _bound(4 * (576 * n + n + 2 * 20 * n), n * 20 * (576 * 5 + 288 * 4))
+
+
+def _check_sweep(sweep_input, what: str, card: str) -> None:
+    """K1 against its plain version, bit-exact, on a path's own sweep input;
+    its time, bound and share."""
+    import torch
+
+    from swiftmp3_tpu_torch.ops import kernels
+    from tools.torch_profile_step import cuda_ms
+
+    mag, g, iso = sweep_input
+    mag, g = mag.reshape(-1, 576).contiguous(), g.reshape(-1).contiguous()
+    n = g.numel()
+    bits, bv = kernels.rate_sweep(mag, g, iso=iso)
+    err = 0
+    for s in range(0, n, 8192):
+        pb, pv = kernels.rate_sweep_plain(mag[s : s + 8192], g[s : s + 8192], iso)
+        err = max(err, int((pb - bits[s : s + 8192]).abs().max()),
+                  int((pv - bv[s : s + 8192]).abs().max()))
+    if err:
+        raise AssertionError(f"rate_sweep kernel disagrees with its plain version on the {what} "
+                             f"input (max {err})")
+    ms = cuda_ms(lambda: kernels.rate_sweep(mag, g, iso=iso), reps=20)
+    plain_ms = cuda_ms(lambda: kernels.rate_sweep_plain(mag, g, iso), reps=3, warmup=1)
+    bound_ms, bound_by = _sweep_bound(n)
+    print(f"[K1 {what}] rate_sweep bit-exact on the {what} path's input N={n} "
+          f"({'iso' if iso else 'compat'} law), {card}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f}% of its bound", flush=True)
+
+
+def _parsed(data: bytes):
+    from tests.util import parse_frames
+
+    return parse_frames(data)
 
 
 def _compare_streams(got: bytes, ref: bytes, what: str) -> int:
@@ -143,12 +308,202 @@ def _sweep_inputs(chunk, options, device):
     return mag, torch.clamp(g0, 0, 255).to(torch.int32).contiguous()
 
 
-def _check_walks(streams, n_frames: int) -> None:
-    """Every stream: n_frames frames of 417 or 418 bytes (128 kbps, 44.1 kHz)."""
+def _check_walks(streams, n_frames: int, options=None) -> None:
+    """Every stream: n_frames frames of a valid walk, each of the CBR frame
+    size of `options` or one byte more (417 or 418 at 128 kbps, 44.1 kHz);
+    any size under VBR."""
+    sizes = {417, 418}
+    if options is not None:
+        base = 144 * options.bitrate_kbps * 1000 // options.sample_rate
+        sizes = None if options.vbr else {base, base + 1}
     for b, data in enumerate(streams):
         frames = _frames(bytes(data))
-        if len(frames) != n_frames or {len(f) for f in frames} - {417, 418}:
+        if len(frames) != n_frames or (sizes and {len(f) for f in frames} - sizes):
             raise AssertionError(f"stream {b}: bad frame walk ({len(frames)} frames)")
+
+
+def _check_pack(pack_input, what: str, card: str) -> None:
+    """K2 against its plain version, bit-exact, on a path's own pack input
+    and on its slots three times over (frames past the cap); its time,
+    bound and share."""
+    import torch
+
+    from swiftmp3_tpu_torch.ops import kernels
+    from tools.torch_profile_step import cuda_ms
+
+    c_d, n_d, cap = pack_input
+    err, over = 0, 0
+    for c, n in ((c_d, n_d), (torch.cat([c_d] * 3, 1).contiguous(), torch.cat([n_d] * 3, 1).contiguous())):
+        by, tot = kernels.pack(c, n, cap)
+        pby, ptot = kernels.pack_plain(c, n, cap)
+        err = max(err, int((by.int() - pby.int()).abs().max()), int((tot - ptot).abs().max()))
+        over = int((ptot > 8 * cap).sum())
+    if err:
+        raise AssertionError(f"pack kernel disagrees with its plain version on the {what} input (max {err})")
+    F, P = c_d.shape
+    ms = cuda_ms(lambda: kernels.pack(c_d, n_d, cap), reps=20)
+    plain_ms = cuda_ms(lambda: kernels.pack_plain(c_d, n_d, cap), reps=5)
+    bound_ms, bound_by = _bound(4 * 2 * F * P + F * cap + 4 * F, 6 * F * P)
+    print(f"[K2 {what}] pack bit-exact on the {what} path's input F={F} P={P} cap={cap} "
+          f"({int((n_d > 0).sum())} live slots, widest {int(n_d.max())} bits) and on its slots "
+          f"three times over ({over} of {F} frames past the cap), {card}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f}% of its bound", flush=True)
+
+
+def _serve(options, card: str) -> dict:
+    """Phase 4d: the serving pool at bench.py's configuration, then K1 and
+    K2 against their plain versions on the pool's own first sweep and pack
+    inputs; returns the launch counts of its timed run (warm step
+    included)."""
+    import torch
+
+    from swiftmp3_tpu_torch.ops import kernels
+    from swiftmp3_tpu_torch.parallel import StreamPool
+
+    lanes, fps, steps = SERVE_LANES, SERVE_FRAMES, SERVE_STEPS
+    n = 1152 * options.channels
+    srng = np.random.default_rng(7)
+    feeds = [
+        [(srng.standard_normal(fps * n) * 4000).astype(np.int16) for _ in range(lanes)]
+        for _ in range(steps + 2)
+    ]
+    pool = StreamPool(options, lanes=lanes, frames_per_step=fps)
+    try:
+        sids = [pool.submit() for _ in range(lanes)]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with _FirstInputs() as first:  # copies in the warm step
+            for sid in sids:
+                pool.feed(sid, feeds[0][sid])
+            pool.step()  # warm
+            times = []
+            for k in range(steps):
+                for sid in sids:
+                    pool.feed(sid, feeds[k + 1][sid])
+                t0 = time.perf_counter()
+                pool.step()
+                times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        for name in ("rate_sweep", "pack"):
+            if launches[name] <= 0:
+                raise AssertionError(f"the serving pool never launched kernel {name}")
+        for sid in sids:
+            pool.close(sid)
+        pool.run_until_idle()
+        _check_walks([pool.result(sid) for sid in sids], (steps + 1) * fps, options)
+
+        # attribution at the pool's shape (bench.py:239-290)
+        enc = pool.enc
+        sp_pcm = np.stack([f.reshape(fps, n) for f in feeds[-1]])
+        sp_fin = np.zeros((lanes, fps), dtype=bool)
+        sp_val = np.ones((lanes, fps), dtype=bool)
+        resident = enc.prepare(sp_pcm, sp_fin, sp_val)
+        c, _ = enc._run(enc.carry, *resident)  # warm
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(4):
+            c, _ = enc._run(c, *resident)
+        end.record()
+        end.synchronize()
+        compute_ms = start.elapsed_time(end) / 4
+        up = []
+        for k in range(3):
+            buf = np.stack([f.reshape(fps, n) for f in feeds[k]])
+            t0 = time.perf_counter()
+            enc._put(buf)
+            torch.cuda.synchronize()
+            up.append((time.perf_counter() - t0) * 1e3)
+        upload_ms = statistics.median(up)
+        outs = enc.step(sp_pcm, sp_fin, sp_val)
+        if "ready" in outs:
+            outs["ready"].synchronize()
+        t0 = time.perf_counter()
+        enc.drain(outs, sp_val)
+        render_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pool.shutdown()
+    parts = {"compute": compute_ms, "upload": upload_ms, "render": render_ms}
+    audio_s = lanes * fps * 1152 / options.sample_rate
+    med = statistics.median(times)
+    print(f"[serve] StreamPool lanes={lanes} frames_per_step={fps} ({audio_s:.2f} audio-s a step), "
+          f"{card}: {steps} timed steps after 1 warm, step ms median {med:.2f} min "
+          f"{min(times):.2f} max {max(times):.2f} ({audio_s / (med / 1e3):.1f} audio-s/s); "
+          f"steps {['%.2f' % t for t in times]}; compute {compute_ms:.2f} ms (chained, CUDA "
+          f"events), pinned int16 upload {upload_ms:.2f} ms, render {render_ms:.2f} ms (one "
+          f"drain); bound by {max(parts, key=parts.get)}; {lanes} streams x "
+          f"{(steps + 1) * fps} frames walk OK; launches {launches}", flush=True)
+    # the kernels on the inputs the pool gave them (after the counts were read)
+    _check_sweep(first.sweep, "serve", card)
+    _check_pack(first.pack, "serve", card)
+    return launches
+
+
+def _churn_streams(rng, n_streams: int, fps: int, channels: int) -> list:
+    """Mixed lengths (1 to 3 steps of frames, partial tails, exact frame
+    multiples, every eighth stream empty), int16 and float32 in turns."""
+    n = 1152 * channels
+    t = np.arange(3 * fps * 1152) / 44100
+    streams = []
+    for i in range(n_streams):
+        frames = int(rng.integers(1, 3 * fps))
+        tail = 0 if i % 3 == 0 else int(rng.integers(1, 1152)) * channels
+        length = 0 if i % 8 == 5 else frames * n + tail
+        tone = np.sin(2 * np.pi * rng.uniform(100, 3000) * t)[: length // channels]
+        x = np.repeat(0.3 * tone, channels) + 0.05 * rng.standard_normal(length)
+        x = np.clip(x, -0.99, 0.99).astype(np.float32)
+        streams.append((x * 32767).astype(np.int16) if i % 2 == 0 else x)
+    return streams
+
+
+def _churn(options, lanes: int, fps: int, streams: list, pipelined: bool, sample) -> tuple:
+    """Runs `streams` through a pool of `lanes` lanes (every fourth one
+    drip-fed across steps, the rest whole) and holds the streams of `sample`
+    byte for byte to sessions on the card. Returns (each stream's bytes and
+    Xing header, feeding steps, wall s)."""
+    from swiftmp3_tpu_torch.encoder import new_session
+    from swiftmp3_tpu_torch.parallel import StreamPool
+
+    t0 = time.perf_counter()
+    pool = StreamPool(options, lanes=lanes, frames_per_step=fps, pipelined=pipelined)
+    try:
+        sids = [pool.submit() for _ in streams]
+        pos = [0] * len(streams)
+        drip = [i for i in range(len(streams)) if i % 4 == 1]
+        for i, (sid, pcm) in enumerate(zip(sids, streams)):
+            if i not in drip:
+                pool.feed(sid, pcm)
+                pool.close(sid)
+        piece = (fps * 1152 // 3 + 7) * options.channels  # a third of a step, ends mid-frame
+        steps = 0
+        while drip:
+            for i in list(drip):
+                pool.feed(sids[i], streams[i][pos[i] : pos[i] + piece])
+                pos[i] += piece
+                if pos[i] >= len(streams[i]):
+                    pool.close(sids[i])
+                    drip.remove(i)
+            pool.step()
+            steps += 1
+        pool.run_until_idle()
+        out = [(pool.result(sid), pool.xing_header(sid)) for sid in sids]
+        for data, _ in out:
+            _frames(data)
+        for i in sample:
+            s = new_session(options)
+            want = s.encode(streams[i]) + s.flush()
+            if pool.result(sids[i]) != want:
+                raise AssertionError(
+                    f"pool stream {i} ({len(streams[i])} samples, pipelined={pipelined}) "
+                    f"differs from its session on the card: {_compare_streams(pool.result(sids[i]), want, 'pool')} frames"
+                )
+            if pool.xing_header(sids[i]) != s.generate_xing_header():
+                raise AssertionError(f"pool stream {i}: Xing header differs from the session's")
+    finally:
+        pool.shutdown()
+    return out, steps, time.perf_counter() - t0
 
 
 def _drive(options, audio, steps: int):
@@ -169,63 +524,73 @@ def _drive(options, audio, steps: int):
     final = np.zeros((B, T), dtype=bool)
     valid = np.ones((B, T), dtype=bool)
     streams = [bytearray() for _ in range(B)]
-    step_ms, wall_s, first_pack = [], [], []
-    pack = kernels.pack
-
-    def record(chunks, nbits, cap):  # keeps the first call's input, counts as before
-        if not first_pack:
-            first_pack.append((chunks.clone(), nbits.clone(), cap))
-        return pack(chunks, nbits, cap)
-
-    kernels.pack = record
+    step_ms, wall_s = [], []
     try:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        for k in range(steps):
-            w0 = time.perf_counter()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            la = step_lookahead(audio, k, options.channels) if options.window_sequencing else None
-            outs = enc.step(audio[k], final, valid, la)
-            end.record()
-            end.synchronize()
-            step_ms.append(start.elapsed_time(end))
-            for b, chunk in enumerate(enc.drain(outs, valid)):
-                streams[b] += chunk
-            wall_s.append(time.perf_counter() - w0)
-        for b, tail in enumerate(enc.flush()):
-            streams[b] += tail
-        launches = dict(kernels.LAUNCHES)
+        with _FirstInputs() as first:
+            for k in range(steps):
+                w0 = time.perf_counter()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                la = step_lookahead(audio, k, options.channels) if options.window_sequencing else None
+                outs = enc.step(audio[k], final, valid, la)
+                end.record()
+                end.synchronize()
+                step_ms.append(start.elapsed_time(end))
+                for b, chunk in enumerate(enc.drain(outs, valid)):
+                    streams[b] += chunk
+                wall_s.append(time.perf_counter() - w0)
+            for b, tail in enumerate(enc.flush()):
+                streams[b] += tail
+            launches = dict(kernels.LAUNCHES)
     finally:
-        kernels.pack = pack
         enc.close()
-    return streams, step_ms, wall_s, launches, first_pack[0]
+    return streams, step_ms, wall_s, launches, first.pack
 
 
 def main() -> int:
     import torch
 
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {name} {now - t_phase[0]:.2f} s", flush=True)
+        t_phase[0] = now
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
 
+    from swiftmp3_tpu_torch import cli
     from swiftmp3_tpu_torch.encoder import new_session
     from swiftmp3_tpu_torch.io.huffman_pack import pack_frame_main_data
     from swiftmp3_tpu_torch.ops import dsp, kernels
-    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+    from swiftmp3_tpu_torch.options import ID3Tag, MP3EncoderOptions
+    from swiftmp3_tpu_torch.parallel import encode_corpus
+    from swiftmp3_tpu_torch.utils import read_wav, write_wav
     from tests.torch_inputs import (
         B_MAIN,
+        CLI_ARGS,
+        CLI_SIGNAL,
         COMPAT_FIXTURES,
+        CORPUS_OPTIONS,
+        CORPUS_TAGS,
+        HQ_FLAG_OPTIONS,
         HQ_OPTIONS,
         MAIN_OPTIONS,
         STRICT_FIXTURES,
         STRICT_OPTIONS,
         T_MAIN,
         bench_audio,
+        cli_pcm,
+        corpus_streams,
         fixture_path,
         golden_path,
         golden_streams,
+        hq_flag_streams,
         hq_streams,
         jax_path,
         knife_edge_sweep_input,
@@ -243,6 +608,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build_kernels()
     print(f"[card] kernel build {time.perf_counter() - t0:.2f} s", flush=True)
+    phase_done("card and build")
 
     opts = MP3EncoderOptions(**MAIN_OPTIONS)
     rng = np.random.default_rng(0)
@@ -285,17 +651,14 @@ def main() -> int:
             kernels.rate_sweep_plain(flat_m[s : s + 8192], flat_g[s : s + 8192])
 
     plain_ms = cuda_ms(plain_sweep, reps=3, warmup=1)
-    # read mag and gstart, write bits and bv; per granule and gain: 576 x
-    # (multiply, add, floor, min, convert) + 288 x (index, lookup, add, max)
-    bound_ms, bound_by = _bound(
-        4 * (flat_m.numel() + n_main + 2 * 20 * n_main), n_main * 20 * (576 * 5 + 288 * 4)
-    )
+    bound_ms, bound_by = _sweep_bound(n_main)
     report["rate_sweep"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     print(f"[K1] rate_sweep bit-exact, both laws, N=37, FMA knife edges and N={n_main}: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
           flush=True)
     print(f"[K1] rate_sweep at {100 * bound_ms / ms:.1f}% of its bound, {card}", flush=True)
+    phase_done("K1")
 
     # ---- 3. K2 pack vs its plain version and the host packer ------------------
     rp = np.random.default_rng(7)
@@ -334,6 +697,7 @@ def main() -> int:
     print(f"[K2] pack bit-exact at 5 shapes and vs the host packer: "
           f"F=32768 P=1152 cap=894 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    phase_done("K2")
 
     # ---- 3b. K3 polyphase filterbank vs its plain version and the matmul ------
     hist_main = chunk_main[..., -480:].roll(1, dims=0).contiguous()  # nonzero history
@@ -375,6 +739,7 @@ def main() -> int:
           f"conv1d {fb['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
           f"launches {k3_launches}", flush=True)
     print(f"[K3] polyphase at {100 * bound_ms / fb['ms']:.1f}% of its bound, {card}", flush=True)
+    phase_done("K3")
 
     # ---- 4. the main path -----------------------------------------------------
     streams, step_ms, wall_s, main_launches, _ = _drive(opts, audio, STEPS_MAIN)
@@ -389,6 +754,7 @@ def main() -> int:
           f"{audio_s / (steady / 1e3):.1f} audio-s/s); step+render wall s "
           f"{['%.3f' % t for t in wall_s]}; {B_MAIN} streams x {STEPS_MAIN * T_MAIN} frames "
           f"walk OK; launches {main_launches}", flush=True)
+    phase_done("main")
 
     # ---- 4b. the strict path ---------------------------------------------------
     s_opts = MP3EncoderOptions.spec_strict(**STRICT_OPTIONS)
@@ -402,21 +768,9 @@ def main() -> int:
           f"({audio_s / (s_step_ms[-1] / 1e3):.1f} audio-s/s at the last step); step+render "
           f"wall s {['%.3f' % t for t in s_wall_s]}; {B_MAIN} streams x "
           f"{STEPS_STRICT * T_MAIN} frames walk OK; launches {s_launches}", flush=True)
-    c_d, n_d, cap = s_pack
-    by, tot = kernels.pack(c_d, n_d, cap)
-    pby, ptot = kernels.pack_plain(c_d, n_d, cap)
-    err = max(int((by.int() - pby.int()).abs().max()), int((tot - ptot).abs().max()))
-    if err:
-        raise AssertionError(f"pack kernel disagrees with its plain version at the strict shape (max {err})")
-    F, P = c_d.shape
-    ms = cuda_ms(lambda: kernels.pack(c_d, n_d, cap), reps=20)
-    plain_ms = cuda_ms(lambda: kernels.pack_plain(c_d, n_d, cap), reps=5)
-    bound_ms, bound_by = _bound(4 * 2 * F * P + F * cap + 4 * F, 6 * F * P)
-    print(f"[K2 strict] pack bit-exact on the strict path's input F={F} P={P} cap={cap} "
-          f"({int((n_d > 0).sum())} live slots), {card}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{100 * bound_ms / ms:.1f}% of its bound", flush=True)
-    del c_d, n_d, s_pack
+    _check_pack(s_pack, "strict", card)
+    del s_pack
+    phase_done("strict")
 
     # ---- 4c. the hq paths ---------------------------------------------------------
     hq_opts = {p: MP3EncoderOptions.hq(**kw) for p, kw in HQ_OPTIONS.items()}
@@ -438,27 +792,125 @@ def main() -> int:
         if preset == "hq_joint":
             hq_pack = h_pack
         del h_streams, h_pack
-    c_d, n_d, cap = hq_pack
-    err = 0
-    for c, n in ((c_d, n_d), (torch.cat([c_d] * 3, 1).contiguous(), torch.cat([n_d] * 3, 1).contiguous())):
-        by, tot = kernels.pack(c, n, cap)
-        pby, ptot = kernels.pack_plain(c, n, cap)
-        err = max(err, int((by.int() - pby.int()).abs().max()), int((tot - ptot).abs().max()))
-    over = int((ptot > 8 * cap).sum())
-    del c, n, by, pby
-    if err:
-        raise AssertionError(f"pack kernel disagrees with its plain version at the hq shape (max {err})")
-    F, P = c_d.shape
-    ms = cuda_ms(lambda: kernels.pack(c_d, n_d, cap), reps=20)
-    plain_ms = cuda_ms(lambda: kernels.pack_plain(c_d, n_d, cap), reps=5)
-    bound_ms, bound_by = _bound(4 * 2 * F * P + F * cap + 4 * F, 6 * F * P)
-    print(f"[K2 hq] pack bit-exact on the hq path's input F={F} P={P} cap={cap} "
-          f"({int((n_d > 0).sum())} live slots, widest {int(n_d.max())} bits) and on its slots "
-          f"three times over ({over} of {F} frames past the cap), {card}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{100 * bound_ms / ms:.1f}% of its bound; launches on the hq paths "
-          f"{ {p: v['pack'] for p, v in hq_launches.items()} }", flush=True)
-    del c_d, n_d, hq_pack
+    _check_pack(hq_pack, "hq", card)
+    print(f"[K2 hq] launches on the hq paths {({p: v['pack'] for p, v in hq_launches.items()})}",
+          flush=True)
+    del hq_pack
+    phase_done("hq")
+
+    # ---- 4d. serving -----------------------------------------------------------
+    serve_launches = _serve(opts, card)
+    phase_done("serve")
+
+    # ---- 4e. lane churn, compat at the serving shape, then hq ----------------------
+    crng = np.random.default_rng(8)
+    n_churn = SERVE_LANES * 3 // 2
+    churn = _churn_streams(crng, n_churn, SERVE_FRAMES, opts.channels)
+    # from the first cohort and from the recycled lanes (streams past the
+    # first SERVE_LANES): whole, drip-fed (i % 4 == 1) and empty (i % 8 == 5)
+    sample = sorted({i for i in (0, 1, 5, 6, SERVE_LANES, SERVE_LANES + 1, SERVE_LANES + 5,
+                                 SERVE_LANES + 6, SERVE_LANES + 9, n_churn - 1) if i < n_churn})
+    # the pipelined pool (the serving mode) against sessions; the synchronous
+    # mode runs on the hq pool below
+    _, steps, wall = _churn(opts, SERVE_LANES, SERVE_FRAMES, churn, True, sample)
+    print(f"[serve churn] compat pool lanes={SERVE_LANES} T={SERVE_FRAMES}, {n_churn} streams "
+          f"({sum(len(x) == 0 for x in churn)} empty, {n_churn // 4} drip-fed over {steps} feeding "
+          f"steps), {wall:.2f} s pipelined: {len(sample)} sampled streams "
+          f"({sum(i >= SERVE_LANES for i in sample)} on recycled lanes) byte-equal to card "
+          f"sessions, 0 differing bytes", flush=True)
+    hq_s = MP3EncoderOptions.hq(**HQ_OPTIONS["hq_stereo"])
+    churn_hq = _churn_streams(np.random.default_rng(9), 12, 8, hq_s.channels)
+    churn_hq[3] = np.resize(churn_hq[3], 2 * 1152 * 5)  # an exact frame multiple
+    piped, _, wall = _churn(hq_s, 8, 8, churn_hq, True, range(len(churn_hq)))
+    sync, _, wall_sync = _churn(hq_s, 8, 8, churn_hq, False, [])
+    if sync != piped:
+        raise AssertionError("the synchronous hq pool's streams differ from the pipelined pool's")
+    print(f"[serve churn] hq {HQ_OPTIONS['hq_stereo']} pool lanes=8 T=8, 12 streams (window "
+          f"sequencing: preroll, holdback, an exact frame multiple, drip-fed and empty streams), "
+          f"{wall:.2f} s pipelined, {wall_sync:.2f} s synchronous: all 12 byte-equal to card "
+          f"sessions, and the synchronous pool's to the pipelined pool's", flush=True)
+    phase_done("serve churn")
+
+    # ---- 4f. complete files: encode_corpus and the command line ---------------
+    c_opts = MP3EncoderOptions(**CORPUS_OPTIONS)
+    c_streams = corpus_streams() + [churn[i] for i in (0, 1)]
+    tags = [ID3Tag(title=t, artist=a) for t, a in CORPUS_TAGS] + [None, ID3Tag(title="x")]
+    files = encode_corpus(c_opts, c_streams, tags=tags, frames_per_step=16)
+    for b, (pcm, data) in enumerate(zip(c_streams, files)):
+        s = new_session(MP3EncoderOptions(**CORPUS_OPTIONS, id3_tag=tags[b]))
+        audio_b = s.encode(pcm) + s.flush()
+        if data != s.generate_id3_tag() + s.generate_xing_header() + audio_b:
+            raise AssertionError(f"encode_corpus file {b} differs from ID3 + Xing + session bytes")
+    with open(jax_path("corpus_file0"), "rb") as fh:
+        ref = fh.read()
+    corpus_flips = _compare_files(files[0], ref, "corpus file vs JAX")
+    if corpus_flips > FIXTURE_FLIP_CEILING:
+        raise AssertionError("encode_corpus file differs from the JAX package's")
+    print(f"[corpus] encode_corpus {len(files)} complete files ([ID3][Xing][frames]) equal to "
+          f"ID3 + Xing + session bytes on the card; file 0 against the JAX package's frozen "
+          f"file: structure equal, {corpus_flips} frames differ (ceiling "
+          f"{FIXTURE_FLIP_CEILING})", flush=True)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav, out = os.path.join(tmp, "in.wav"), os.path.join(tmp, "out.mp3")
+        write_wav(wav, cli_pcm(), CLI_SIGNAL[2], CLI_SIGNAL[3])
+        t0 = time.perf_counter()
+        if cli.main([wav, out, *CLI_ARGS]) != 0:
+            raise AssertionError("the command line failed")
+        cli_s = time.perf_counter() - t0
+        with open(out, "rb") as fh:
+            got = fh.read()
+        pcm, sr, ch = read_wav(wav)
+        s = new_session(MP3EncoderOptions.hq(
+            mode="mono" if ch == 1 else "stereo", sample_rate=sr, bitrate_kbps=96,
+            lowpass_hz=11000, gapless_info=True, id3_tag=ID3Tag(title="Port", artist="swiftmp3"),
+        ))
+        audio_c = s.encode(pcm) + s.flush()
+        if got != s.generate_id3_tag() + s.generate_xing_header() + audio_c:
+            raise AssertionError("the command line's file differs from its session's on the card")
+    with open(jax_path("cli"), "rb") as fh:
+        ref = fh.read()
+    cli_flips = _compare_files(got, ref, "command line vs JAX")
+    cli_frames = len(_frames(_split_id3(ref)[1]))
+    if cli_flips * HQ_JAX_FLIP_RATE[1] > HQ_JAX_FLIP_RATE[0] * cli_frames:
+        raise AssertionError("the command line's file differs from the JAX package's")
+    print(f"[cli] python -m swiftmp3_tpu_torch in.wav out.mp3 {' '.join(CLI_ARGS)} on the card "
+          f"({cli_s:.2f} s): against the JAX command line's frozen file, structure equal, "
+          f"{cli_flips}/{cli_frames} frames differ", flush=True)
+    phase_done("corpus and cli")
+
+    # ---- 4g. hq at 96 kbps (the adaptive lowpass), demand VBR, depth 3 -----------
+    hq96 = MP3EncoderOptions.hq(**HQ_FLAG_OPTIONS["hq_joint_96k"])
+    h_streams, h_step_ms, h_wall_s, h_launches, h_pack = _drive(hq96, audio, STEPS_HQ96)
+    if h_launches["pack"] < STEPS_HQ96:
+        raise AssertionError(f"the hq96 path launched pack {h_launches['pack']} times")
+    _check_walks(h_streams, STEPS_HQ96 * T_MAIN, hq96)
+    audio96 = B_MAIN * T_MAIN * 1152 / hq96.sample_rate
+    print(f"[hq96] BatchEncoder hq {HQ_FLAG_OPTIONS['hq_joint_96k']} (lowpass_hz "
+          f"{hq96.lowpass_hz}, adaptive) B={B_MAIN} T={T_MAIN} x {STEPS_HQ96} steps, {card}: "
+          f"step+render wall s {['%.3f' % t for t in h_wall_s]}; {B_MAIN} streams x "
+          f"{STEPS_HQ96 * T_MAIN} frames walk OK; launches {h_launches}", flush=True)
+    for k, t in enumerate(h_step_ms):
+        print(f"[hq96] step {k} device ms {t:.2f} ({audio96 / (t / 1e3):.1f} audio-s/s)", flush=True)
+    del h_streams
+    _check_pack(h_pack, "hq96", card)
+    del h_pack
+    mono_audio = [a[..., 0::2].copy() for a in audio[:2]]  # bench audio is dual mono
+    for preset in ("hq_vbr_demand_q5", "hq_mono_96k_depth3"):
+        o = MP3EncoderOptions.hq(**HQ_FLAG_OPTIONS[preset])
+        f_streams, f_step_ms, _, f_launches, f_pack = _drive(o, mono_audio, 1)
+        if f_launches["pack"] < 1:
+            raise AssertionError(f"the {preset} path never launched pack")
+        _check_walks(f_streams, T_MAIN, o)
+        rates = sorted({f.bitrate_kbps for d in f_streams[:32] for f in _parsed(bytes(d))})
+        print(f"[hq flags] {preset} {HQ_FLAG_OPTIONS[preset]} B={B_MAIN} T={T_MAIN} x 1 step, "
+              f"{card}: step device ms {f_step_ms[0]:.2f}; walks OK; bitrates in use "
+              f"(32 streams) {rates}; launches {f_launches}", flush=True)
+        del f_streams
+        _check_pack(f_pack, preset, card)
+        del f_pack
+    phase_done("hq96 and hq flags")
 
     # ---- 5. parity ---------------------------------------------------------
     fixture_flips, fixture_frames = 0, 0
@@ -526,6 +978,7 @@ def main() -> int:
         or flips["corpus"] > STRICT_TELEMETRY_FLIP_CEILING
     ):
         raise AssertionError("strict byte flips above the pinned ceiling")
+    phase_done("parity compat and strict")
     num, den = HQ_JAX_FLIP_RATE
     for preset, o in hq_opts.items():
         flips = {"row": 0, "corpus": 0, "golden": 0}
@@ -551,6 +1004,39 @@ def main() -> int:
             or flips["golden"] > HQ_GOLDEN_FLIP_CEILING[preset]
         ):
             raise AssertionError(f"{preset} byte flips above the pinned ceiling")
+    phase_done("parity hq")
+    for preset, kw in HQ_FLAG_OPTIONS.items():
+        o = MP3EncoderOptions.hq(**kw)
+        flips = {"jax": 0, "golden": 0, "cpu_fb": 0}
+        n_frames = 0
+        for stem, pcm in hq_flag_streams(preset).items():
+            s = new_session(o)
+            got = s.encode(pcm) + s.flush()
+            with open(jax_path(f"{preset}_{stem}"), "rb") as fh:
+                ref = fh.read()
+            flips["jax"] += _compare_streams(got, ref, f"{preset} {stem} vs JAX")
+            n_frames += len(_frames(ref))
+            with open(golden_path(stem, preset), "rb") as fh:
+                flips["golden"] += _compare_streams(got, fh.read(), f"{preset} {stem} vs golden")
+            with _CpuFilterbank():
+                s = new_session(o)
+                got = s.encode(pcm) + s.flush()
+            f = _compare_streams(got, ref, f"{preset} {stem} vs JAX, CPU filterbank")
+            if f != HQ_FLAG_CPU_FILTERBANK_FLIPS.get(f"{preset}_{stem}", 0):
+                raise AssertionError(f"{preset} {stem}: {f} frames differ from the JAX bytes with the "
+                                     "CPU filterbank and MDCT")
+            flips["cpu_fb"] += f
+        ceiling = VBR_DEMAND_GOLDEN_FLIP_CEILING if preset == "hq_vbr_demand_q5" else None
+        print(f"[parity hq flags] {preset}: vs JAX {flips['jax']}/{n_frames} (ceiling "
+              f"{HQ_FLAG_JAX_FLIP_CEILING[preset]}), with the CPU filterbank and MDCT "
+              f"{flips['cpu_fb']}/{n_frames} (the CPU session's knife edges); vs golden "
+              f"{flips['golden']}/{n_frames}"
+              + (f" (ceiling {ceiling})" if ceiling is not None else " (structure)"), flush=True)
+        if flips["jax"] > HQ_FLAG_JAX_FLIP_CEILING[preset] or (
+            ceiling is not None and flips["golden"] > ceiling
+        ):
+            raise AssertionError(f"{preset} byte flips above the pinned ceiling")
+    phase_done("parity hq flags")
 
     # ---- 6. result lines ----------------------------------------------------
     rows = [
@@ -561,8 +1047,10 @@ def main() -> int:
         ("polyphase", "swiftmp3_tpu_torch/ops/csrc/polyphase.cu",
          "swiftmp3_tpu/ops/pallas_kernels.py:77"),
     ]
-    # K1 and K2 counted on the main path, K3 on the filterbank stage
-    launches = {**main_launches, "polyphase": k3_launches}
+    # K1 and K2 counted on the main path and the serving pool, K3 on the
+    # filterbank stage
+    launches = {n: main_launches[n] + serve_launches[n] for n in ("rate_sweep", "pack")}
+    launches["polyphase"] = k3_launches
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[n], **report[n]}

@@ -1,7 +1,7 @@
 """The chunk program in PyTorch: chunk-parallel DSP + small integer loops
 over T. Twin of `swiftmp3_tpu.models.pipeline.make_chunk_fn` for the compat
-preset, the spec_strict preset and the hq preset (MPEG-1, depth-1
-reservoir).
+preset, the spec_strict preset and the hq preset with its flags (the static
+and adaptive lowpass, demand VBR, reservoir depth 1-8) at MPEG-1 rates.
 
 Per chunk of T frames x B streams:
 
@@ -13,10 +13,14 @@ Per chunk of T frames x B streams:
     (kernel K1), or the strict path: real scalefactors, scfsi, and the
     strict-entropy sweep pricing all 20 gains exactly (plain PyTorch, as
     the reference computes it outside any Pallas kernel), with the linbits
-    ESC tables under linbits_tables.
-  Phase 2 (loop over T, integers only): bitrate, padding, reservoir budget
-    (split by the demand-donation law under demand_budget), candidate
-    selection and the reservoir mirror. Invalid frames freeze the carry.
+    ESC tables under linbits_tables. The subband lowpass masks the MDCT
+    output (per granule under adaptive_lowpass).
+  Phase 2 (loop over T, integers only): bitrate (the energy law, or under
+    vbr_demand the smallest rate whose slot covers the frame's priced
+    demand), padding, reservoir budget (split by the demand-donation law
+    under demand_budget), candidate selection and the reservoir mirror
+    (main_data_begin front-aligned at depth > 1). Invalid frames freeze the
+    carry.
     The strict path runs this loop on its priced stream-length mirror
     (`est_stream_len`).
   Phase 3 (parallel): re-quantize at the selected gains; compat: regions,
@@ -43,9 +47,11 @@ from ..io.framing import FrameResult
 from ..io.sideinfo import GranuleInfo
 from ..ops import dsp, kernels
 from ..options import SAMPLES_PER_GRANULE, MP3EncoderOptions, Mode
-from ..tables import bitrate_index, bitrate_value, mode_bits
+from ..tables import BITRATE_TABLE_V1, bitrate_index, bitrate_value, mode_bits
 
 MAX_FRAME_MAIN_BITS = 1152 * 15  # all pair slots at 15 bits
+# the MPEG-1 Layer III bitrates (kbps) demand VBR chooses among
+VBR_BITRATES = tuple(int(b) for b in BITRATE_TABLE_V1 if b)
 # The linbits law's initial-gain target (peaks quantize near 2048) and its
 # demand probe (the grid candidate whose priced bits are a granule's demand
 # under demand_budget): copies of swiftmp3_tpu/ops/reference.py
@@ -80,28 +86,25 @@ def _carry_spec(window_sequencing: bool) -> dict:
     return {**_CARRY_SPEC, **(_SEQ_CARRY_SPEC if window_sequencing else {})}
 
 
-def _lowpass_active(options: MP3EncoderOptions) -> bool:
-    """The lowpass stage runs only when its cut lies below Nyquist
-    (pipeline.py:425-427); a cut at or above it is a byte no-op."""
+def lowpass_cut(options: MP3EncoderOptions) -> int | None:
+    """The lowpass's cut subband, or None when the stage does not run: no
+    lowpass_hz, or a cut at or above Nyquist, which is a byte no-op
+    (pipeline.py:425-427)."""
     lp = options.lowpass_hz
-    return lp is not None and lp * 64 // options.sample_rate < 32
+    if lp is None or lp * 64 // options.sample_rate >= 32:
+        return None
+    return int(lp * 64 // options.sample_rate)
 
 
 def check_supported(options: MP3EncoderOptions) -> None:
     """Raise NotImplementedError for any option outside the port (the
-    compat, spec_strict and hq chunk programs at MPEG-1 rates, reservoir
-    depth 1), naming the ROADMAP Queue 1 item that brings it. A flag the
-    reference's chunk program never reads at this configuration (intensity
-    stereo above 24 kbps a channel, distortion control below 112 kbps a
-    channel, a lowpass at or above Nyquist) encodes as the flag-off
-    program, as the reference's does."""
+    compat, spec_strict and hq chunk programs at MPEG-1 rates), naming the
+    ROADMAP Queue 1 item that brings it. A flag the reference's chunk
+    program never reads at this configuration (intensity stereo above 24
+    kbps a channel, distortion control below 112 kbps a channel) encodes as
+    the flag-off program, as the reference's does."""
     o = options
-    lowpass = _lowpass_active(o)
     unsupported = [
-        (o.vbr_demand, "vbr_demand", 8),
-        (lowpass and o.adaptive_lowpass, "adaptive_lowpass", 8),
-        (lowpass, "lowpass_hz", 8),
-        (o.reservoir_depth > 1, "reservoir_depth > 1", 8),
         (o.distortion_control_active, "distortion_control", 9),
         (o.intensity_stereo_active and o.channels == 2, "intensity_stereo", 10),
         (bool(o.lsf), "LSF sample rates", 11),
@@ -172,6 +175,42 @@ def demand_budget_bits(
     return torch.where(has_demand, prop, equal[:, None]).to(i32)
 
 
+def lowpass_stage(
+    spectra: torch.Tensor, block: torch.Tensor, cut_sb: int, adaptive: bool
+) -> torch.Tensor:
+    """The subband lowpass on the MDCT output (pipeline.py:425-450): zero
+    every coefficient from subband cut_sb up; under adaptive_lowpass only in
+    the granules that engage (dsp.adaptive_lowpass_engage), and always in a
+    non-LONG granule. spectra: [..., 576]; block: [...] the block types."""
+    mask = (torch.arange(576, device=spectra.device) < cut_sb * 18).to(torch.float32)
+    if not adaptive:
+        return spectra * mask
+    engage = (block != dsp.BLOCK_LONG) | dsp.adaptive_lowpass_engage(spectra, cut_sb)
+    return torch.where(engage[..., None], spectra * mask, spectra)
+
+
+def demand_vbr_candidates(options: MP3EncoderOptions) -> tuple[list, list]:
+    """Demand VBR's candidate bitrates, the band [32, min(table top, base +
+    64 - 4q)], and each one's slot in bits (pipeline.py:729-765). At MPEG-1
+    rates the top is at least 32 + 64 - 36, so the band is never empty."""
+    sr = options.sample_rate
+    top = min(VBR_BITRATES[-1], options.bitrate_kbps + 64 - options.quality * 4)
+    cands = [b for b in VBR_BITRATES if 32 <= b <= top]
+    side = 17 if options.channels == 1 else 32
+    crc = 2 if options.crc_protected else 0
+    return cands, [((144 * b * 1000) // sr - 4 - crc - side) * 8 for b in cands]
+
+
+def demand_vbr_bitrate(
+    demand: torch.Tensor, slot_bits: torch.Tensor, cands: torch.Tensor
+) -> torch.Tensor:
+    """Each frame's demand-VBR bitrate: the smallest candidate whose slot
+    covers the frame's priced demand [B], the band's top when none does."""
+    fits = demand[:, None] <= slot_bits
+    first = torch.argmax(fits.to(torch.int32), dim=1)
+    return torch.where(torch.any(fits, dim=1), cands[first], cands[-1])
+
+
 def main_data_cap(options: MP3EncoderOptions) -> int:
     """Static per-frame cap (bytes) of the packed main_data image
     (pipeline.py:118-149, MPEG-1): the frame's largest slot plus the
@@ -225,7 +264,13 @@ def make_chunk_fn(options: MP3EncoderOptions):
     win_seq = options.window_sequencing
     linbits = options.linbits_tables
     demand_budget = strict and options.demand_budget
+    vbr_demand = is_vbr and options.vbr_demand
+    deep = options.reservoir_depth > 1
+    cut_sb = lowpass_cut(options)
     i32 = torch.int32
+    if vbr_demand:
+        cands, cand_slot_bits = demand_vbr_candidates(options)
+        demand_k = min(quality, 19)  # the quality-mapped candidate gain
 
     def sequence(carry, pcm_bt, left, right, la, final, valid):
         """The ISO window sequence from the raw pre-matrix PCM, shared
@@ -317,6 +362,8 @@ def make_chunk_fn(options: MP3EncoderOptions):
             iso_mixed_alias=iso_short, window_seq=win_seq,
         )
         spectra = spectra.reshape(B, ch, T, n_gr, 576)
+        if cut_sb is not None:
+            spectra = lowpass_stage(spectra, block_b, cut_sb, options.adaptive_lowpass)
 
         sfd = scfsi_nib = sf_write = None
         if strict:
@@ -369,6 +416,10 @@ def make_chunk_fn(options: MP3EncoderOptions):
         k_budget_t = tm(pre["k_budget"])
         if demand_budget:
             demand_t = tm(pre["bits"][..., K_DEMAND])  # [T, B, G]
+        if vbr_demand:
+            frame_demand_t = torch.sum(bits_t[..., demand_k], dim=-1, dtype=i32)  # [T, B]
+            slots_c = torch.tensor(cand_slot_bits, dtype=i32, device=dev)
+            cands_c = torch.tensor(cands, dtype=i32, device=dev)
 
         def keep(new, old, val):  # invalid frames freeze the carry
             return {
@@ -385,9 +436,13 @@ def make_chunk_fn(options: MP3EncoderOptions):
 
         def placement(c, gap, hb, fin):
             """main_data_begin and the stream-length mirror after a frame of
-            hb bytes (depth 1: tail-aligned in the aligned reservoir)."""
+            hb bytes (the aligned reservoir: tail-aligned at depth 1,
+            front-aligned on the whole gap at depth > 1)."""
             if aligned:
-                mdb = torch.clamp(torch.minimum(gap, hb), 0, res_cap)
+                if deep:
+                    mdb = torch.clamp(gap, 0, res_cap)
+                else:
+                    mdb = torch.clamp(torch.minimum(gap, hb), 0, res_cap)
                 sl = c["stream_len"] + (gap - mdb) + hb - c["slot_fifo"][:, 0]
             else:
                 mdb = torch.where(fin, 0, torch.clamp(c["stream_len"], max=res_cap))
@@ -410,7 +465,11 @@ def make_chunk_fn(options: MP3EncoderOptions):
         for t in range(T):
             fin = final_t[t]
             val = valid_t[t]
-            if is_vbr:
+            if vbr_demand:
+                target = demand_vbr_bitrate(frame_demand_t[t], slots_c, cands_c)
+                br_idx = dsp.bitrate_index_device(target, sr)
+                br_val = dsp.bitrate_value_device(br_idx)
+            elif is_vbr:
                 target = dsp.vbr_choose_bitrate(
                     frame_e[t], c["vbr_ehist"], c["vbr_count"], base_kbps, quality
                 )
@@ -430,6 +489,8 @@ def make_chunk_fn(options: MP3EncoderOptions):
             res_bits = torch.where(fin, 0, c["avail"] * 8)
             usable = (res_bits * 9) // 10
             if aligned:
+                # the depth-general expressibility cap: a frame's data lands
+                # only in still-buffered slots, within main_data_begin's reach
                 usable = torch.minimum(usable, torch.clamp(gap, 0, res_cap) * 8)
             total_bits = slot * 8 + usable
             bits_per_granule = total_bits // n_gran

@@ -478,6 +478,26 @@ def sequence_blocks_chunk(
     return block, last_short, last_want
 
 
+# --- Lowpass --------------------------------------------------------------------
+
+
+def adaptive_lowpass_engage(spectra: torch.Tensor, cut_sb: int) -> torch.Tensor:
+    """The adaptive lowpass decision per granule (dsp.py:702-725): engage the
+    cut where the high band (coefficients from cut_sb * 18 up) is negligible
+    (energy fraction < 1e-3) or noise-like (spectral flatness > 0.15); a
+    peaky harmonic high band keeps the full band. Both statistics ignore
+    the coefficients' order, so the decision holds for every block layout.
+    spectra: [..., 576] float32. Returns bool [...]."""
+    spec = spectra.to(_F32)
+    hb2 = spec[..., cut_sb * 18 :] ** 2
+    m_hb = torch.mean(hb2, dim=-1)
+    m_tot = torch.mean(spec * spec, dim=-1)
+    frac = m_hb * float(hb2.shape[-1]) / torch.clamp(m_tot * float(spec.shape[-1]), min=1e-30)
+    sfm = torch.exp(torch.mean(torch.log(hb2 + 1e-20), dim=-1)) / (m_hb + 1e-20)
+    # the thresholds as float32, as the reference compares them
+    return (frac < float(np.float32(1e-3))) | (sfm > float(np.float32(0.15)))
+
+
 # --- Gains and the rate loop ---------------------------------------------------
 
 

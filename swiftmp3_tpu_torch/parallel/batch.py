@@ -4,9 +4,15 @@
 `BatchEncoder` encodes B independent streams in lockstep: PCM rides as
 batch-major [B, T, frame] chunks, the chunk program runs on the device, and
 each stream's packed outputs render to bytes through the port's native
-renderer (`swiftmp3_tpu_torch.native.NativeStreamRenderer`). Pinned host buffers
-with non-blocking copies stand in for the JAX version's `device_put` and
+renderer (`swiftmp3_tpu_torch.native.NativeStreamRenderer`), or with
+`use_native=False` through the Python `FrameAssembler`, the behavioural
+reference. `reset_lanes` recycles finished lanes for new streams (the
+serving layer, `parallel.pool.StreamPool`). Pinned host buffers with
+non-blocking copies stand in for the JAX version's `device_put` and
 `copy_to_host_async`, so uploads and downloads overlap other work.
+
+`encode_batch` encodes a list of streams, each as one session would;
+`encode_corpus` makes complete files of them ([ID3][Xing][frames]).
 """
 
 from __future__ import annotations
@@ -19,7 +25,16 @@ import numpy as np
 import torch
 
 from ..encoder import GAPLESS_DECODER_DELAY, GAPLESS_ENCODER_DELAY
-from ..models.pipeline import fetch_outputs, init_carry, make_chunk_fn, resolve_device
+from ..io.framing import FrameAssembler
+from ..io.id3 import build_id3_tag
+from ..io.xing import build_xing_header
+from ..models.pipeline import (
+    fetch_outputs,
+    frame_results_from_outputs,
+    init_carry,
+    make_chunk_fn,
+    resolve_device,
+)
 from ..native import NativeStreamRenderer
 from ..options import SAMPLES_PER_GRANULE, MP3EncoderOptions
 
@@ -27,10 +42,21 @@ from ..options import SAMPLES_PER_GRANULE, MP3EncoderOptions
 class BatchEncoder:
     """Encode a fixed-size batch of streams on `device` (the card by default)
     with one chunk program. The outputs of a step stay readable until
-    `drain` is called on them; several steps may be in flight."""
+    `drain` is called on them; several steps may be in flight.
+
+    Host rendering runs the native C++ renderer (a failed build raises), or
+    with use_native=False the Python FrameAssembler; both give the same
+    bytes. render_threads (default: the cores, at most 8) render streams in
+    parallel."""
 
     def __init__(
-        self, options: MP3EncoderOptions, batch: int, frames_per_step: int, device="cuda"
+        self,
+        options: MP3EncoderOptions,
+        batch: int,
+        frames_per_step: int,
+        device="cuda",
+        use_native: bool = True,
+        render_threads: int | None = None,
     ):
         self._run = make_chunk_fn(options)
         self.options = options
@@ -38,14 +64,22 @@ class BatchEncoder:
         self.frames_per_step = frames_per_step
         self.device = resolve_device(device)
         self._pinned = self.device.type == "cuda"
-        render_threads = min(os.cpu_count() or 1, 8)
+        if render_threads is None:
+            render_threads = min(os.cpu_count() or 1, 8)
         self._pool = (
             ThreadPoolExecutor(max_workers=render_threads)
             if render_threads > 1 and batch > 1
             else None
         )
         self.carry = init_carry(batch, options, self.device)
-        self.renderers = [NativeStreamRenderer(options) for _ in range(batch)]
+        self._init = None  # the fresh carry reset_lanes selects from, built once
+        self.use_native = use_native
+        # each stream's renderer: NativeStreamRenderer, or FrameAssembler
+        self.renderers = [self._renderer() for _ in range(batch)]
+
+    def _renderer(self):
+        renderer = NativeStreamRenderer if self.use_native else FrameAssembler
+        return renderer(self.options)
 
     def close(self) -> None:
         """Release the render thread pool (idempotent; drain then renders
@@ -99,13 +133,43 @@ class BatchEncoder:
         ready.record(torch.cuda.current_stream(self.device))
         return {"packed": host, "ready": ready}
 
+    def reset_lanes(self, lanes) -> None:
+        """Give the masked lanes a fresh stream's state: the device carry of
+        init_carry and a new renderer (continuous batching: a finished
+        stream's lane takes the next stream). lanes: [B] bool. Unmasked
+        lanes keep their carry bit for bit; an all-False mask does nothing.
+        The select is queued on the device after every step already queued
+        and rebinds self.carry, so no queued step reads a tensor it
+        writes."""
+        mask = np.asarray(lanes, dtype=bool)
+        if not mask.any():
+            return
+        if self._init is None:
+            self._init = init_carry(self.batch, self.options, self.device)
+        m = self._put(mask)
+        self.carry = {
+            k: torch.where(m.view((self.batch,) + (1,) * (v.dim() - 1)), self._init[k], v)
+            for k, v in self.carry.items()
+        }
+        for b in np.flatnonzero(mask).tolist():
+            self.renderers[b] = self._renderer()
+
     def drain(self, outs: dict, valid: np.ndarray) -> List[bytes]:
         """Render one chunk's outputs to bytes per stream (streams render in
         parallel; the native renderer runs without the interpreter lock)."""
         if "ready" in outs:
             outs["ready"].synchronize()
         outs = fetch_outputs(outs, self.options)
-        counts = np.asarray(valid).sum(axis=1)  # valid is a prefix along T
+        valid = np.asarray(valid)
+        if not self.use_native:
+            emitted = [bytearray() for _ in range(self.batch)]
+            for t in range(valid.shape[1]):
+                for b in range(self.batch):
+                    if valid[b, t]:
+                        fr = frame_results_from_outputs(outs, self.options, t, b)
+                        emitted[b] += self.renderers[b].push(fr)
+            return [bytes(e) for e in emitted]
+        counts = valid.sum(axis=1)  # valid is a prefix along T
 
         def render_one(b: int) -> bytes:
             F = int(counts[b])
@@ -144,11 +208,14 @@ def encode_batch(
     streams: Sequence[np.ndarray],
     device="cuda",
     frames_per_step: int = 64,
-) -> List[bytes]:
+    _return_encoder: bool = False,
+):
     """Encode N independent PCM streams on `device` (the card by default);
     returns MP3 bytes per stream. Equivalent to one session per stream
     (encode + flush); streams may differ in length (twin of
-    batch.encode_batch without the mesh)."""
+    batch.encode_batch without the mesh). With _return_encoder, returns
+    (bytes per stream, the BatchEncoder), whose renderers hold each stream's
+    frame count, byte count and frame sizes."""
     n_streams = len(streams)
     ch = options.channels
     frame_len = options.samples_per_frame * ch
@@ -220,7 +287,7 @@ def encode_batch(
 
     out = [bytearray() for _ in range(n_streams)]
     if not n_streams:
-        return []
+        return ([], None) if _return_encoder else []
     enc = BatchEncoder(options, B, frames_per_step, device)
     try:
         # 3-stage software pipeline: chunk k computes while chunk k+1
@@ -248,4 +315,29 @@ def encode_batch(
             out[b] += tail
     finally:
         enc.close()
-    return [bytes(o) for o in out]
+    result = [bytes(o) for o in out]
+    return (result, enc) if _return_encoder else result
+
+
+def encode_corpus(
+    options: MP3EncoderOptions,
+    streams: Sequence[np.ndarray],
+    tags=None,
+    device="cuda",
+    frames_per_step: int = 64,
+) -> List[bytes]:
+    """Encode N streams on `device` (the card by default) into complete MP3
+    files: per stream [ID3v2.3 tag][Xing/Info header][frames], the batched
+    file-encode mode (twin of batch.encode_corpus without the mesh). `tags`:
+    an optional ID3Tag per stream, else options.id3_tag for every one."""
+    frames, enc = encode_batch(
+        options, streams, device, frames_per_step=frames_per_step, _return_encoder=True
+    )
+    files = []
+    for b, audio in enumerate(frames):
+        r = enc.renderers[b]
+        tag = tags[b] if tags else options.id3_tag
+        id3 = build_id3_tag(tag) if tag else b""
+        xing = build_xing_header(options, r.frame_count, r.total_bytes, r.frame_sizes)
+        files.append(id3 + xing + audio)
+    return files

@@ -90,6 +90,15 @@ def test_port_file_imports_nothing_of_the_jax_package(relpath):
     assert not bad, f"{relpath} imports {bad}"
 
 
+def test_the_import_scan_covers_the_entry_points():
+    """The command line, the serving pool and the utilities are scanned."""
+    files = set(_port_files())
+    want = {"swiftmp3_tpu_torch/cli.py", "swiftmp3_tpu_torch/__main__.py",
+            "swiftmp3_tpu_torch/parallel/pool.py", "swiftmp3_tpu_torch/parallel/batch.py",
+            "swiftmp3_tpu_torch/utils/__init__.py", "swiftmp3_tpu_torch/utils/wav.py"}
+    assert want <= files
+
+
 def test_the_import_scan_sees_forbidden_imports():
     assert _forbidden("swiftmp3_tpu") and _forbidden("swiftmp3_tpu.options")
     assert _forbidden("jax.numpy") and _forbidden("tests.fixture_lib")
@@ -171,6 +180,7 @@ VERBATIM = [
     *(f"io/{n}" for n in ("__init__.py", "bitwriter.py", "crc.py", "sideinfo.py",
                            "huffman_pack.py", "framing.py", "xing.py", "id3.py")),
     "native/frame_render.cpp",
+    "utils/wav.py",
 ]
 
 

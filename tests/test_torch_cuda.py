@@ -1,8 +1,10 @@
 """Card-only tests of the port: the hand-written CUDA kernels against their
-plain PyTorch versions (K2 also at the strict and hq paths' shapes, on the hq
-path's own input with frames past the cap, and against the host packer on
-strict frames), and the port's entry points on a CUDA device against the
-same entry points on the CPU, compat, spec_strict and hq.
+plain PyTorch versions (K2 also at the strict and hq paths' shapes, on the
+pack input of every hq configuration, the hq flags' included, with frames
+past the cap, and against the host packer on strict frames), the port's
+entry points on a CUDA device against the same entry points on the CPU,
+compat, spec_strict and hq, and the serving pool and reset_lanes on the card
+against sessions on the card.
 
 Every test here needs a CUDA card and skips without one (the kernels have no
 CPU mode). The file imports nothing of JAX and nothing of the JAX package, so
@@ -23,6 +25,7 @@ from swiftmp3_tpu_torch.parallel.batch import encode_batch
 
 from .torch_inputs import (
     COMPAT_FIXTURES,
+    HQ_FLAG_OPTIONS,
     HQ_OPTIONS,
     STRICT_FIXTURES,
     STRICT_OPTIONS,
@@ -37,10 +40,13 @@ from .torch_inputs import (
 
 pytestmark = pytest.mark.cuda
 
-# the last four: the strict and the hq paths' slots a frame, stereo and mono
+# from the sixth: the strict and the hq paths' slots a frame and caps, stereo
+# and mono; the last three the hq flags' (96 kbps joint stereo and mono,
+# demand VBR's band up to 172 kbps)
 PACK_SHAPES = [
     (16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160), (2048, 1152, 894),
     (2048, 1872, 894), (2048, 936, 910), (2048, 4176, 894), (2048, 2088, 910),
+    (2048, 4176, 790), (2048, 2088, 806), (2048, 2088, 1014),
 ]
 # frames whose bytes may differ between the card and the CPU: a float ULP in
 # the matmul or reduction order can move a quantization knife edge
@@ -249,3 +255,121 @@ def test_hq_step_on_the_card_matches_the_cpu(cuda_device):
     num, den = HQ_CARD_FLIP_RATE
     for card, cpu in zip(got["cuda"], got["cpu"]):
         assert _flips(card, cpu) <= num * T // den
+
+
+@pytest.mark.parametrize("preset", list(HQ_FLAG_OPTIONS))
+def test_pack_kernel_matches_plain_on_the_hq_flag_paths(cuda_device, preset):
+    """K2 on the pack input of each hq flag configuration (its own P and
+    cap), and on the same slots three times over, past the cap."""
+    chunks, nbits, cap = hq_pack_input(cuda_device, B=4, T=4, preset=preset)
+    for c, n in ((chunks, nbits), (torch.cat([chunks] * 3, 1), torch.cat([nbits] * 3, 1))):
+        c, n = c.contiguous(), n.contiguous()
+        by, tot = kernels.pack(c, n, cap)
+        pby, ptot = kernels.pack_plain(c, n, cap)
+        assert torch.equal(by, pby) and torch.equal(tot, ptot)
+    assert (ptot > 8 * cap).any()
+
+
+def _pool_streams(channels: int) -> list:
+    rng = np.random.default_rng(11)
+    lengths = [3 * 1152 + 400, 2 * 1152, 5 * 1152 + 1, 576, 4 * 1152, 0, 3 * 1152 + 7]
+    streams = []
+    for i, n in enumerate(lengths):
+        pcm = make_signal("burst" if i % 2 else "mix", max(n, 1) / 44100, 44100, channels, 50 + i)
+        streams.append(pcm[: n * channels])
+    streams[3] = (streams[3] * 32767).astype(np.int16)  # an int16 stream among float ones
+    return streams
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+@pytest.mark.parametrize("hq", [False, True], ids=["compat", "hq"])
+def test_pool_on_the_card_matches_card_sessions(cuda_device, hq, pipelined):
+    """The pool on the card, 2 lanes for 7 streams (lanes recycled, one
+    stream drip-fed, one closed empty), byte for byte the card sessions'."""
+    from swiftmp3_tpu_torch.parallel import StreamPool
+
+    o = MP3EncoderOptions.hq(mode="mono", bitrate_kbps=128) if hq else MP3EncoderOptions(
+        mode="stereo"
+    )
+    streams = _pool_streams(o.channels)
+    pool = StreamPool(o, lanes=2, frames_per_step=3, pipelined=pipelined)
+    sids = []
+    for i, pcm in enumerate(streams):
+        sid = pool.submit()
+        if i == 0:
+            for k in range(0, len(pcm), 1000):
+                pool.feed(sid, pcm[k : k + 1000])
+                pool.step()
+        else:
+            pool.feed(sid, pcm)
+        pool.close(sid)
+        sids.append(sid)
+    pool.run_until_idle()
+    for sid, pcm in zip(sids, streams):
+        s = new_session(o)
+        assert pool.result(sid) == s.encode(pcm) + s.flush()
+        assert pool.xing_header(sid) == s.generate_xing_header()
+    pool.shutdown()
+
+
+def _bits(t: torch.Tensor) -> bytes:
+    return t.cpu().numpy().tobytes()
+
+
+def test_reset_lanes_on_the_card(cuda_device):
+    """reset_lanes on CUDA tensors: unmasked lanes bit for bit, masked lanes
+    init_carry's state (+inf block energies included)."""
+    from swiftmp3_tpu_torch.models.pipeline import init_carry
+    from swiftmp3_tpu_torch.parallel.batch import BatchEncoder
+
+    from .torch_inputs import bench_audio, step_lookahead
+
+    o = MP3EncoderOptions.hq(**HQ_FLAG_OPTIONS["hq_joint_96k"])
+    B, T = 4, 4
+    audio = [bench_audio(np.random.default_rng(5), B, T, 2, 44100) for _ in range(2)]
+    enc = BatchEncoder(o, B, T)
+    valid = np.ones((B, T), bool)
+    enc.drain(enc.step(audio[0], np.zeros((B, T), bool), valid, step_lookahead(audio, 0, 2)), valid)
+    before = {k: v.clone() for k, v in enc.carry.items()}
+    mask = np.array([True, False, False, True])
+    enc.reset_lanes(mask)
+    init = init_carry(B, o, cuda_device)
+    for k, v in enc.carry.items():
+        assert v.is_cuda and _bits(v[1:3]) == _bits(before[k][1:3]), k
+        assert _bits(v[[0, 3]]) == _bits(init[k][[0, 3]]), k
+    assert torch.isinf(enc.carry["onset_prev2"][0]).all()
+    enc.close()
+
+
+@pytest.mark.parametrize("preset", ["hq_mono_96k", "hq_vbr_demand_q5"])
+def test_mono_hq_on_the_card_with_the_cpu_filterbank_matches_the_jax_bytes(
+    cuda_device, preset, monkeypatch
+):
+    """On the card the mono hq rows keep the JAX backend's frame structure,
+    but the card's filterbank and MDCT sum in another order, which moves
+    linbits knife edges (whole streams of tonal content). With the port's
+    CPU filterbank and MDCT in their place, and every other op on the card,
+    the bytes are the JAX backend's exactly."""
+    from .torch_inputs import hq_flag_streams, jax_path
+
+    o = MP3EncoderOptions.hq(**HQ_FLAG_OPTIONS[preset])
+    pm, md = dsp.polyphase_chunk_matmul, dsp.mdct_chunk
+    for stem in ("corpus_tonal", "corpus_panned"):
+        pcm = hq_flag_streams(preset)[stem]
+        with open(jax_path(f"{preset}_{stem}"), "rb") as fh:
+            ref = fh.read()
+        s = new_session(o)
+        _flips(s.encode(pcm) + s.flush(), ref)  # the structure
+        monkeypatch.setattr(
+            dsp, "polyphase_chunk_matmul",
+            lambda h, p: tuple(x.to(h.device) for x in pm(h.cpu(), p.cpu())),
+        )
+        monkeypatch.setattr(
+            dsp, "mdct_chunk",
+            lambda S, ov, bt, *a, **k: tuple(
+                x.to(S.device) for x in md(S.cpu(), ov.cpu(), bt.cpu(), *a, **k)
+            ),
+        )
+        s = new_session(o)
+        assert s.encode(pcm) + s.flush() == ref
+        monkeypatch.undo()

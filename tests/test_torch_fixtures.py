@@ -13,7 +13,11 @@ and their golden streams from files under `tests/fixtures/torch/`. Here:
   byte for byte, so the files stay pinned to the reference: under the main
   path's compat options and under the spec_strict preset
   (`torch_inputs.STRICT_OPTIONS`); of the hq presets' golden streams
-  (`torch_inputs.HQ_OPTIONS`), one short row is re-encoded here.
+  (`torch_inputs.HQ_OPTIONS`, `torch_inputs.HQ_FLAG_OPTIONS`), one short row
+  each is re-encoded here;
+- the hq flag configurations, their inputs and the depth-3 signal equal
+  the reference tests' (`tests/test_ulp_telemetry.py`,
+  `tests/test_reservoir_depth.py`).
 
 Regenerate the compat and strict golden streams with
 `python -m tests.test_torch_fixtures`, the hq and JAX-backend files with
@@ -103,6 +107,11 @@ def test_golden_inputs_cover_the_frozen_files():
             want += [ti.golden_path(stem, preset), ti.jax_path(f"{preset}_{stem}")]
     want += [ti.jax_path(row[0]) for row in ti.STRICT_EXTRA_ROWS]
     want += [ti.checkpoint_path(side) for side in ("jax", "port")]
+    for preset in ti.HQ_FLAG_OPTIONS:
+        for stem in ti.hq_flag_streams(preset):
+            want += [ti.golden_path(stem, preset), ti.jax_path(f"{preset}_{stem}")]
+    want += [ti.checkpoint_path(side, ti.DEPTH_CHECKPOINT[1]) for side in ("jax", "port")]
+    want += [ti.jax_path("corpus_file0"), ti.jax_path("cli")]
     assert frozen == sorted(os.path.basename(p) for p in want)
 
 
@@ -151,6 +160,43 @@ def test_frozen_hq_golden_stream_is_the_golden_encoders():
     pcm = ti.hq_streams()["corpus_tonal"]
     s = EncoderSession(_hq_options("hq_joint"), backend="numpy")
     with open(ti.golden_path("corpus_tonal", "hq_joint"), "rb") as fh:
+        assert fh.read() == s.encode(pcm) + s.flush()
+
+
+def _flag_options(preset: str) -> MP3EncoderOptions:
+    kw = ti.HQ_FLAG_OPTIONS[preset]
+    return MP3EncoderOptions.hq(**dict(kw, mode=Mode(kw["mode"])))
+
+
+def test_hq_flag_options_and_inputs_are_the_reference_tests():
+    from .test_reservoir_depth import _sparse
+    from .test_ulp_telemetry import _CONFIGS, _mono
+
+    configs = {name: (make, prep) for name, _, make, prep in _CONFIGS}
+    make, prep = configs["hq_vbr_demand_q5"]
+    assert _flag_options("hq_vbr_demand_q5") == make() and prep is _mono
+    corpus = _corpus_stereo()
+    for k, pcm in ti.hq_flag_streams("hq_vbr_demand_q5").items():
+        assert np.array_equal(pcm, _mono(corpus[k[len("corpus_"):]]))
+    assert np.array_equal(ti.sparse_transients(16 * 1152), _sparse(16 * 1152))
+    # the depth-3 configuration of tests/test_reservoir_depth.py
+    assert _flag_options("hq_mono_96k_depth3") == MP3EncoderOptions.hq(
+        mode=Mode.MONO, bitrate_kbps=96, reservoir_depth=3
+    )
+    # 96 kbps engages the preset's adaptive lowpass; the static row has none
+    for preset in ("hq_mono_96k", "hq_joint_96k", "hq_mono_96k_depth3"):
+        o = _flag_options(preset)
+        assert o.lowpass_hz == 10000 and o.adaptive_lowpass
+    o = _flag_options("hq_mono_lowpass10k")
+    assert o.lowpass_hz == 10000 and not o.adaptive_lowpass
+
+
+@pytest.mark.parametrize("preset", list(ti.HQ_FLAG_OPTIONS))
+def test_frozen_hq_flag_golden_stream_is_the_golden_encoders(preset):
+    """One stream of each configuration (13 or 17 frames)."""
+    stem, pcm = next(iter(ti.hq_flag_streams(preset).items()))
+    s = EncoderSession(_flag_options(preset), backend="numpy")
+    with open(ti.golden_path(stem, preset), "rb") as fh:
         assert fh.read() == s.encode(pcm) + s.flush()
 
 

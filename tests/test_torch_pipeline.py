@@ -263,13 +263,9 @@ def test_carry_from_jax_conversions():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(vbr=True, vbr_demand=True, hq=True, item=8),
-        dict(lowpass_hz=10000, adaptive_lowpass=True, hq=True, item=8),
         dict(distortion_control=True, mode="mono", hq=True, item=9),
         dict(intensity_stereo=True, mode="joint_stereo", bitrate_kbps=32, lowpass_hz=None,
              hq=True, item=10),
-        dict(lowpass_hz=10000, item=8),
-        dict(reservoir_mode="aligned", reservoir_depth=2, item=8),
         dict(free_format=True, bitrate_kbps=100, item=11),
         dict(sample_rate=22050, iso_quantization=True, reservoir_mode="aligned", item=11),
     ],
@@ -316,11 +312,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_hq_preset_raises():
-    """The hq preset runs at 128 kbps; at 96 kbps and below it engages the
-    rate-derived adaptive lowpass, which is still item 8."""
+    """The hq preset runs at 128 kbps and, with its rate-derived adaptive
+    lowpass, at 96 kbps; with distortion control active it raises item 9."""
     tpipe.make_chunk_fn(MP3EncoderOptions.hq())
-    with pytest.raises(NotImplementedError, match="adaptive_lowpass .* item 8"):
-        tpipe.make_chunk_fn(MP3EncoderOptions.hq(bitrate_kbps=96))
+    tpipe.make_chunk_fn(MP3EncoderOptions.hq(bitrate_kbps=96))
+    with pytest.raises(NotImplementedError, match="distortion_control .* item 9"):
+        tpipe.make_chunk_fn(MP3EncoderOptions.hq(mode="mono", distortion_control=True))
 
 
 def test_import_loads_no_jax():

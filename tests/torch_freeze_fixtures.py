@@ -1,10 +1,12 @@
-"""Freeze the reference streams the port's hq and strict tests hold it to.
+"""Freeze the reference streams the port's hq, strict, pool and CLI tests
+hold it to.
 
-    JAX_PLATFORMS=cpu python -m tests.torch_freeze_fixtures
+    JAX_PLATFORMS=cpu python -m tests.torch_freeze_fixtures [part ...]
 
 Run once on the CPU, from the repository root; no test runs it (it compiles
-the JAX hq chunk program, which the fast tier never does). It writes under
-tests/fixtures/torch/:
+JAX hq chunk programs, which the fast tier never does). The parts are hq,
+strict, checkpoint, flags, depth_checkpoint, corpus and cli (all when none
+is named). It writes under tests/fixtures/torch/:
 
 - golden_<preset>_<stem>.mp3: the golden numpy backend's streams under each
   hq configuration (tests/torch_inputs.HQ_OPTIONS) for the hq fixture rows
@@ -14,7 +16,16 @@ tests/fixtures/torch/:
 - checkpoint_jax_<preset>.npz and checkpoint_port_<preset>.npz: the session
   state of each package in the middle of torch_inputs.HQ_CHECKPOINT's stream.
   Before writing them it checks that the JAX backend resumed from the port's
-  checkpoint gives the bytes of the stream encoded without a break.
+  checkpoint gives the bytes of the stream encoded without a break;
+- golden_<preset>_<stem>.mp3 and jax_<preset>_<stem>.mp3 for each preset of
+  torch_inputs.HQ_FLAG_OPTIONS on torch_inputs.hq_flag_streams(preset);
+- checkpoint_jax_<preset>.npz and checkpoint_port_<preset>.npz in the middle
+  of torch_inputs.DEPTH_CHECKPOINT's stream (reservoir depth 3), checked as
+  above;
+- jax_corpus_file0.mp3: the JAX package's encode_corpus file of the first
+  of torch_inputs.corpus_streams();
+- jax_cli.mp3: the JAX command line's output for torch_inputs.CLI_ARGS on a
+  WAV of torch_inputs.cli_pcm().
 
 It prints, for every frozen JAX stream, how many frames the port's CPU
 session encodes differently (the port's tests hold it to these files).
@@ -23,13 +34,19 @@ session encodes differently (the port's tests hold it to these files).
 from __future__ import annotations
 
 import os
+import sys
+import tempfile
 
 import numpy as np
 import torch
 
+from swiftmp3_tpu.cli import main as jax_cli
 from swiftmp3_tpu.encoder import EncoderSession
+from swiftmp3_tpu.options import ID3Tag as JaxID3Tag
 from swiftmp3_tpu.options import MP3EncoderOptions as JaxOptions
 from swiftmp3_tpu.options import Mode
+from swiftmp3_tpu.parallel import encode_corpus
+from swiftmp3_tpu.utils.wav import write_wav
 from swiftmp3_tpu_torch.encoder import new_session
 from swiftmp3_tpu_torch.options import MP3EncoderOptions
 
@@ -38,8 +55,9 @@ from .util import parse_frames
 
 
 def hq_options(preset: str):
-    """(port options, JAX options) of an hq preset."""
-    kw = ti.HQ_OPTIONS[preset]
+    """(port options, JAX options) of an hq preset of HQ_OPTIONS or
+    HQ_FLAG_OPTIONS."""
+    kw = {**ti.HQ_OPTIONS, **ti.HQ_FLAG_OPTIONS}[preset]
     return MP3EncoderOptions.hq(**kw), JaxOptions.hq(**dict(kw, mode=Mode(kw["mode"])))
 
 
@@ -70,10 +88,10 @@ def write(path: str, data: bytes) -> None:
     print(f"wrote {os.path.relpath(path)} ({len(data)} bytes)", flush=True)
 
 
-def freeze_checkpoints() -> None:
-    stem, preset, cut = ti.HQ_CHECKPOINT
+def freeze_checkpoints(checkpoint=ti.HQ_CHECKPOINT, streams=ti.hq_streams) -> None:
+    stem, preset, cut = checkpoint
     o, jo = hq_options(preset)
-    pcm = ti.hq_streams()[stem]
+    pcm = streams()[stem]
     with open(ti.jax_path(f"{preset}_{stem}"), "rb") as fh:
         whole = fh.read()
     js = EncoderSession(jo, backend="tpu")
@@ -90,30 +108,68 @@ def freeze_checkpoints() -> None:
         "the JAX backend resumed from the port's checkpoint differs from the unbroken stream"
     )
     for side, state in (("jax", jax_state), ("port", port_state)):
-        path = ti.checkpoint_path(side)
+        path = ti.checkpoint_path(side, preset)
         ti.save_session_state(path, state, head_len=len(head))
         print(f"wrote {os.path.relpath(path)}", flush=True)
 
 
-def main() -> None:
-    torch.set_num_threads(1)
-    os.makedirs(ti.TORCH_FIXTURE_DIR, exist_ok=True)
-    streams = ti.hq_streams()
-    for preset in ti.HQ_OPTIONS:
+def freeze_presets(presets, streams_of) -> None:
+    """Golden and JAX-backend streams of each preset on its inputs."""
+    for preset in presets:
         o, jo = hq_options(preset)
-        for stem, pcm in streams.items():
+        for stem, pcm in streams_of(preset).items():
             write(ti.golden_path(stem, preset), encode(EncoderSession(jo, backend="numpy"), pcm))
             ref = encode(EncoderSession(jo, backend="tpu"), pcm)
             write(ti.jax_path(f"{preset}_{stem}"), ref)
             print(f"  port: {frame_flips(encode(new_session(o, 'cpu'), pcm), ref)}", flush=True)
+
+
+def freeze_strict() -> None:
     for name, kw, preset, kind, seconds, seed in ti.STRICT_EXTRA_ROWS:
         o, jo = extra_options(kw, preset)
         pcm = ti.make_signal(kind, seconds, o.sample_rate, o.channels, seed)
         ref = encode(EncoderSession(jo, backend="tpu"), pcm)
         write(ti.jax_path(name), ref)
         print(f"  port: {frame_flips(encode(new_session(o, 'cpu'), pcm), ref)}", flush=True)
-    freeze_checkpoints()
+
+
+def freeze_corpus() -> None:
+    kw = ti.CORPUS_OPTIONS
+    jo = JaxOptions(**dict(kw, mode=Mode(kw["mode"])))
+    tags = [JaxID3Tag(title=t, artist=a) for t, a in ti.CORPUS_TAGS]
+    files = encode_corpus(jo, ti.corpus_streams(), tags=tags, frames_per_step=4)
+    write(ti.jax_path("corpus_file0"), files[0])
+
+
+def freeze_cli() -> None:
+    _, seconds, sr, channels, _ = ti.CLI_SIGNAL
+    with tempfile.TemporaryDirectory() as d:
+        wav, out = os.path.join(d, "in.wav"), os.path.join(d, "out.mp3")
+        write_wav(wav, ti.cli_pcm(), sr, channels)
+        assert jax_cli([wav, out, *ti.CLI_ARGS]) == 0
+        with open(out, "rb") as fh:
+            write(ti.jax_path("cli"), fh.read())
+
+
+PARTS = {
+    "hq": lambda: freeze_presets(ti.HQ_OPTIONS, lambda preset: ti.hq_streams()),
+    "strict": freeze_strict,
+    "checkpoint": freeze_checkpoints,
+    "flags": lambda: freeze_presets(ti.HQ_FLAG_OPTIONS, ti.hq_flag_streams),
+    "depth_checkpoint": lambda: freeze_checkpoints(
+        ti.DEPTH_CHECKPOINT, lambda: ti.hq_flag_streams(ti.DEPTH_CHECKPOINT[1])
+    ),
+    "corpus": freeze_corpus,
+    "cli": freeze_cli,
+}
+
+
+def main(parts) -> None:
+    torch.set_num_threads(1)
+    os.makedirs(ti.TORCH_FIXTURE_DIR, exist_ok=True)
+    for name in parts or PARTS:
+        PARTS[name]()
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -99,20 +99,25 @@ def strict_pack_input(device, B: int = 2, T: int = 2, seed: int = 0, mode: str =
     return seen[0]
 
 
-def hq_pack_input(device, B: int = 2, T: int = 2, seed: int = 0, mode: str = "joint_stereo"):
+def hq_pack_input(
+    device, B: int = 2, T: int = 2, seed: int = 0, mode: str = None, preset: str = "hq_joint"
+):
     """The main_data pack's input on the hq path: the (chunks, nbits)
     [B*T, P] the port's hq chunk program hands `kernels.pack` (36
     scalefactor slots, 3 x 288 linbits pair slots and 144 quad slots a
     granule, so P = 4176 in stereo and 2088 in mono), and the cap, for B
     streams of T frames of loud correlated noise with attacks on `device`
-    (each frame's lookahead the next frame's first granule)."""
+    (each frame's lookahead the next frame's first granule), under the hq
+    configuration `preset` of HQ_OPTIONS or HQ_FLAG_OPTIONS (its mode
+    replaced by `mode`, if given)."""
     import torch
 
     from swiftmp3_tpu_torch.models import pipeline
     from swiftmp3_tpu_torch.ops import kernels
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
 
-    o = MP3EncoderOptions.hq(**dict(HQ_OPTIONS["hq_joint"], mode=mode))
+    kw = {**HQ_OPTIONS, **HQ_FLAG_OPTIONS}[preset]
+    o = MP3EncoderOptions.hq(**dict(kw, mode=mode or kw["mode"]))
     n = 1152 * o.channels
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, (T + 1) * n)).astype(np.float32) * 0.3
@@ -402,10 +407,89 @@ def jax_path(stem: str) -> str:
 HQ_CHECKPOINT = ("corpus_tonal", "hq_joint", 2 * 1152 * 6 + 500)
 
 
-def checkpoint_path(side: str) -> str:
-    """The frozen session checkpoint of HQ_CHECKPOINT taken by `side` ("jax"
-    or "port"), with the bytes emitted before the cut."""
-    return os.path.join(TORCH_FIXTURE_DIR, f"checkpoint_{side}_{HQ_CHECKPOINT[1]}.npz")
+def checkpoint_path(side: str, preset: str = HQ_CHECKPOINT[1]) -> str:
+    """The frozen session checkpoint taken by `side` ("jax" or "port") in the
+    middle of `preset`'s checkpoint stream (HQ_CHECKPOINT, DEPTH_CHECKPOINT),
+    with the bytes emitted before the cut."""
+    return os.path.join(TORCH_FIXTURE_DIR, f"checkpoint_{side}_{preset}.npz")
+
+
+# The rest of the hq flags (ROADMAP item 8d): MP3EncoderOptions.hq(**kwargs)
+# at 96 kbps, where the preset engages its rate-derived adaptive lowpass,
+# mono and joint stereo; a static 10 kHz lowpass; demand VBR at quality 5
+# (tests/test_ulp_telemetry.py's hq_vbr_demand_q5); reservoir depth 3 at 96
+# kbps (tests/test_reservoir_depth.py's configuration).
+HQ_FLAG_OPTIONS = {
+    "hq_mono_96k": dict(mode="mono", bitrate_kbps=96, sample_rate=44100),
+    "hq_joint_96k": dict(mode="joint_stereo", bitrate_kbps=96, sample_rate=44100),
+    "hq_mono_lowpass10k": dict(mode="mono", bitrate_kbps=128, sample_rate=44100,
+                               lowpass_hz=10000),
+    "hq_vbr_demand_q5": dict(mode="mono", bitrate_kbps=128, sample_rate=44100, vbr=True,
+                             vbr_demand=True, quality=5),
+    "hq_mono_96k_depth3": dict(mode="mono", bitrate_kbps=96, sample_rate=44100,
+                               reservoir_depth=3),
+}
+# A checkpoint in the middle of the depth-3 stream, where the slot fifo holds
+# three slots.
+DEPTH_CHECKPOINT = ("sparse", "hq_mono_96k_depth3", 7 * 1152 + 300)
+
+
+def sparse_transients(n: int, seed: int = 21) -> np.ndarray:
+    """Copy of tests/test_reservoir_depth._sparse: a quiet tone bed with
+    short noise hits every 8 frames, mono float32; the content on which a
+    deep reservoir reaches back past one slot."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 44100
+    x = 0.08 * np.sin(2 * np.pi * 330 * t)
+    for f in range(3, n // 1152, 8):
+        off = f * 1152 + 400
+        x[off : off + 300] += 0.7 * rng.standard_normal(300)
+    return np.clip(x, -0.99, 0.99).astype(np.float32)
+
+
+def corpus_mono(pcm: np.ndarray) -> np.ndarray:
+    """Copy of tests/test_ulp_telemetry._mono: the mean of the two channels."""
+    x = pcm.reshape(-1, 2)
+    return ((x[:, 0] + x[:, 1]) * 0.5).astype(np.float32)
+
+
+def hq_flag_streams(preset: str) -> dict:
+    """The inputs whose streams under HQ_FLAG_OPTIONS[preset] are frozen
+    under tests/fixtures/torch/ (jax_<preset>_<stem>.mp3 and
+    golden_<preset>_<stem>.mp3): {stem: PCM}, the telemetry corpus (mono as
+    the telemetry suite folds it), or for the depth-3 configuration 16
+    frames of sparse transients."""
+    if HQ_FLAG_OPTIONS[preset].get("reservoir_depth", 1) > 1:
+        return {"sparse": sparse_transients(16 * 1152)}
+    mono = HQ_FLAG_OPTIONS[preset]["mode"] == "mono"
+    return {f"corpus_{k}": corpus_mono(v) if mono else v for k, v in corpus_stereo().items()}
+
+
+# encode_corpus's frozen file: the JAX package's first complete file (ID3 tag,
+# Xing header, frames) of CORPUS_STREAMS under CORPUS_OPTIONS with per-stream
+# tags (title, artist), frames_per_step 4.
+CORPUS_OPTIONS = dict(mode="stereo", bitrate_kbps=128, sample_rate=44100)
+CORPUS_TAGS = [("Stream zero", "swiftmp3"), ("Stream one", "swiftmp3")]
+
+
+def corpus_streams() -> list:
+    """Two stereo streams of unequal length, one int16 and one float32."""
+    a = (make_signal("mix", 0.3, 44100, 2, 41) * 32767).astype(np.int16)
+    return [a, make_signal("burst", 0.2, 44100, 2, 42)]
+
+
+# The command line's frozen file: the JAX package's CLI output on a mono WAV
+# (tests write it with utils.wav.write_wav from CLI_SIGNAL) with CLI_ARGS:
+# the hq preset at 96 kbps with a static 11 kHz lowpass (the command line
+# passes lowpass_hz always, so the preset's rate-derived rule stays off).
+CLI_SIGNAL = ("burst", 0.4, 44100, 1, 43)  # kind, seconds, rate, channels, seed
+CLI_ARGS = ["--hq", "--bitrate", "96", "--lowpass", "11000", "--gapless", "--title", "Port",
+            "--artist", "swiftmp3", "--quiet"]
+
+
+def cli_pcm() -> np.ndarray:
+    kind, seconds, sr, channels, seed = CLI_SIGNAL
+    return make_signal(kind, seconds, sr, channels, seed)
 
 
 def save_session_state(path: str, state: dict, **extra) -> None:
