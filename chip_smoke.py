@@ -62,6 +62,18 @@ reference streams are committed files). Phases:
      input; demand VBR and reservoir depth 3 ([hq flags]), one step each at
      the same width (mono), K2 bit-exact on each one's pack input, past the
      cap too;
+  4h. distortion control ([hq dc]): BatchEncoder at
+     MP3EncoderOptions.hq(mono, 128 kbps, 44.1 kHz, distortion_control=True),
+     256 streams x 128 frames of the bench audio's left channel, 2 steps,
+     the same 2 steps with the flag off (the bytes must differ), and one
+     step at dc_passes=3, dc_proportional=True; then K2 bit-exact on the dc
+     path's pack input (P = 2088 slots a frame, cap 910);
+  4i. intensity stereo ([hq is]): BatchEncoder at MP3EncoderOptions.hq(joint
+     stereo, 32 kbps, 44.1 kHz, intensity_stereo=True), the preset's
+     adaptive lowpass, 256 streams x 128 frames of panned two-tone audio, 2
+     steps, counting the frames that emit intensity (mode_extension 0b01;
+     there must be some); then K2 bit-exact on the IS path's pack input
+     (P = 4176, cap 582);
   5. parity: the 8 compat fixture rows through new_session(o) against the
      JAX backend's committed streams (tests/fixtures/*.tpu.mp3), and 2
      main-path streams and the ULP-telemetry corpus against the golden numpy
@@ -71,7 +83,12 @@ reference streams are committed files). Phases:
      and the corpus against the JAX backend's frozen bytes and the corpus
      against the golden encoder's frozen hq streams; the hq flag
      configurations' rows against the JAX backend's frozen bytes and demand
-     VBR's corpus against the golden encoder's ([parity hq flags]);
+     VBR's corpus against the golden encoder's ([parity hq flags]); the same
+     for the distortion-control and intensity rows ([parity dc is]), each
+     configuration's rows as one batch: the card's own bytes within a
+     ceiling per configuration, exact with the CPU filterbank and MDCT, the
+     telemetry corpus against the golden encoder's within the telemetry
+     suite's ceilings (42/78, 19/78);
   6. a `kernels` JSON line (K1 and K2 as the compat main path and the
      serving pool launched them, K3 as the filterbank stage did), the card
      line, and the result line. Each phase's wall time is printed
@@ -140,11 +157,30 @@ HQ_FLAG_JAX_FLIP_CEILING = {
     "hq_vbr_demand_q5": 36,
     "hq_mono_96k_depth3": 12,
 }
+# The distortion-control and intensity rows (tests/torch_inputs.DC_IS_OPTIONS),
+# each configuration's rows as one card batch on its own filterbank and MDCT,
+# against the JAX backend's frozen bytes: the frames that batch differed in
+# (H100 80GB HBM3, 700 W: 0/78, 0/26, 0/78, 0/24) under the telemetry suite's
+# rule max(2x, +2). (One card session a stream differed in 32/78 and 10/26 of
+# the mono rows: cuBLAS sums a one-stream filterbank in another order.) With
+# the CPU filterbank and MDCT they must be exact (the CPU session is, on
+# every row).
+DC_IS_JAX_FLIP_CEILING = {
+    "hq_dc_mono128": 2,
+    "hq_dc3p_mono128": 2,
+    "hq_is_32k": 2,
+    "strict_is_32k": 2,
+}
+# the telemetry corpus against the golden encoder's (78 frames): the JAX
+# backend's ceilings in tests/test_ulp_telemetry.py (it measured 34/78, 11/78)
+DC_IS_GOLDEN_FLIP_CEILING = {"hq_dc_mono128": 42, "hq_is_32k": 19}
 
 STEPS_MAIN = 2
 STEPS_STRICT = 2
 STEPS_HQ = 2  # joint stereo; stereo takes one
 STEPS_HQ96 = 2
+STEPS_DC = 2  # and one step at dc_passes=3, dc_proportional=True
+STEPS_IS = 2
 # bench.py's serving cell (bench.py:207-226)
 SERVE_LANES, SERVE_FRAMES, SERVE_STEPS = 64, 32, 10
 K3_TOLERANCE = 2e-5  # tests/test_pallas.py, the JAX package's own for K3
@@ -322,10 +358,11 @@ def _check_walks(streams, n_frames: int, options=None) -> None:
             raise AssertionError(f"stream {b}: bad frame walk ({len(frames)} frames)")
 
 
-def _check_pack(pack_input, what: str, card: str) -> None:
+def _check_pack(pack_input, what: str, card: str, repeat: int = 3, frames: int = None) -> int:
     """K2 against its plain version, bit-exact, on a path's own pack input
-    and on its slots three times over (frames past the cap); its time,
-    bound and share."""
+    and on its slots `repeat` times over (frames past the cap; the first
+    `frames` frames only, if given); its time, bound and share. Returns the
+    number of frames past the cap."""
     import torch
 
     from swiftmp3_tpu_torch.ops import kernels
@@ -333,7 +370,9 @@ def _check_pack(pack_input, what: str, card: str) -> None:
 
     c_d, n_d, cap = pack_input
     err, over = 0, 0
-    for c, n in ((c_d, n_d), (torch.cat([c_d] * 3, 1).contiguous(), torch.cat([n_d] * 3, 1).contiguous())):
+    c_r, n_r = c_d[:frames], n_d[:frames]
+    for c, n in ((c_d, n_d), (torch.cat([c_r] * repeat, 1).contiguous(),
+                              torch.cat([n_r] * repeat, 1).contiguous())):
         by, tot = kernels.pack(c, n, cap)
         pby, ptot = kernels.pack_plain(c, n, cap)
         err = max(err, int((by.int() - pby.int()).abs().max()), int((tot - ptot).abs().max()))
@@ -346,9 +385,11 @@ def _check_pack(pack_input, what: str, card: str) -> None:
     bound_ms, bound_by = _bound(4 * 2 * F * P + F * cap + 4 * F, 6 * F * P)
     print(f"[K2 {what}] pack bit-exact on the {what} path's input F={F} P={P} cap={cap} "
           f"({int((n_d > 0).sum())} live slots, widest {int(n_d.max())} bits) and on its slots "
-          f"three times over ({over} of {F} frames past the cap), {card}: kernel {ms:.4f} ms, "
+          f"{repeat} times over ({over} of {c_r.shape[0]} frames past the cap), {card}: kernel "
+          f"{ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
           f"{100 * bound_ms / ms:.1f}% of its bound", flush=True)
+    return over
 
 
 def _serve(options, card: str) -> dict:
@@ -548,6 +589,121 @@ def _drive(options, audio, steps: int):
     finally:
         enc.close()
     return streams, step_ms, wall_s, launches, first.pack
+
+
+def _hq_dc(mono_audio, card: str) -> None:
+    """Phase 4h: distortion control at full width (2 steps), the flag-off
+    encode of the same audio (2 steps; the bytes must differ), one step at
+    the depth knobs; K2 on the dc path's pack input."""
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+    from tests.torch_inputs import B_MAIN, DC_IS_OPTIONS, T_MAIN, dc_is_options
+
+    dc_opts = dc_is_options("hq_dc_mono128", MP3EncoderOptions)
+    dc_off = MP3EncoderOptions.hq(mode="mono", bitrate_kbps=128, sample_rate=44100, scfsi=False)
+    audio_s = B_MAIN * T_MAIN * 1152 / dc_opts.sample_rate
+    runs = {}
+    for label, o, steps in (("off", dc_off, STEPS_DC), ("dc", dc_opts, STEPS_DC),
+                            ("dc3p", dc_is_options("hq_dc3p_mono128", MP3EncoderOptions), 1)):
+        d_streams, d_step_ms, _, d_launches, d_pack = _drive(o, mono_audio, steps)
+        if d_launches["pack"] < steps:
+            raise AssertionError(f"the hq dc path ({label}) launched pack {d_launches['pack']} times")
+        _check_walks(d_streams, steps * T_MAIN, o)
+        runs[label] = (d_streams, d_step_ms, d_launches)
+        if label == "dc":
+            dc_pack = d_pack
+        del d_pack
+    dc_flips = sum(_compare_streams(bytes(a), bytes(b), "hq dc vs dc off")
+                   for a, b in zip(runs["dc"][0], runs["off"][0]))
+    if dc_flips == 0:
+        raise AssertionError("distortion control left every frame's bytes as with the flag off")
+    print(f"[hq dc] BatchEncoder hq {DC_IS_OPTIONS['hq_dc_mono128'][1]} B={B_MAIN} T={T_MAIN} x "
+          f"{STEPS_DC} steps, {card}: {B_MAIN} streams x {STEPS_DC * T_MAIN} frames walk OK; "
+          f"{dc_flips} of {B_MAIN * STEPS_DC * T_MAIN} frames differ from the flag-off encode of "
+          f"the same audio; launches {runs['dc'][2]}", flush=True)
+    for label, what in (("off", "flag off (scfsi off)"), ("dc", "dc_passes=1"),
+                        ("dc3p", "dc_passes=3, dc_proportional=True")):
+        for k, t in enumerate(runs[label][1]):
+            print(f"[hq dc] {what} step {k} device ms {t:.2f} ({audio_s / (t / 1e3):.1f} audio-s/s)",
+                  flush=True)
+    print(f"[hq dc] one pass by step differences (the host-bound loops vary more): dc_passes=1 "
+          f"- off {runs['dc'][1][-1] - runs['off'][1][-1]:.2f} ms (last steps), (dc_passes=3 - "
+          f"dc_passes=1) / 2 {(runs['dc3p'][1][0] - runs['dc'][1][-1]) / 2:.2f} ms", flush=True)
+    del runs
+    if _check_pack(dc_pack, "hq dc", card) == 0:
+        raise AssertionError("no frame of the hq dc pack check ran past the cap")
+
+
+def _hq_is(card: str) -> None:
+    """Phase 4i: intensity stereo at full width on panned two-tone audio (2
+    steps), some frames emitting intensity; K2 on the IS path's pack
+    input."""
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+    from tests.torch_inputs import B_MAIN, DC_IS_OPTIONS, T_MAIN, dc_is_options, panned_audio
+
+    is_opts = dc_is_options("hq_is_32k", MP3EncoderOptions)
+    audio_s = B_MAIN * T_MAIN * 1152 / is_opts.sample_rate
+    irng = np.random.default_rng(12)
+    is_audio = [panned_audio(irng, B_MAIN, T_MAIN) for _ in range(STEPS_IS)]
+    i_streams, i_step_ms, i_wall_s, i_launches, i_pack = _drive(is_opts, is_audio, STEPS_IS)
+    if i_launches["pack"] < STEPS_IS:
+        raise AssertionError(f"the hq is path launched pack {i_launches['pack']} times")
+    _check_walks(i_streams, STEPS_IS * T_MAIN, is_opts)
+    emit = sum(f.mode_extension == 1 for d in i_streams for f in _parsed(bytes(d)))
+    if emit == 0:
+        raise AssertionError("the hq is path emitted no intensity frame")
+    print(f"[hq is] BatchEncoder hq {DC_IS_OPTIONS['hq_is_32k'][1]} (lowpass_hz "
+          f"{is_opts.lowpass_hz}, adaptive) B={B_MAIN} T={T_MAIN} x {STEPS_IS} steps of panned "
+          f"two-tone audio, {card}: {B_MAIN} streams x {STEPS_IS * T_MAIN} frames walk OK; {emit} "
+          f"of {B_MAIN * STEPS_IS * T_MAIN} frames emit intensity (mode_extension 0b01); "
+          f"step+render wall s {['%.3f' % t for t in i_wall_s]}; launches {i_launches}", flush=True)
+    for k, t in enumerate(i_step_ms):
+        print(f"[hq is] step {k} device ms {t:.2f} ({audio_s / (t / 1e3):.1f} audio-s/s)", flush=True)
+    del i_streams
+    # a 32 kbps frame holds a fifth of the 128 kbps slots' bits: 8 times over
+    # (on the first 4096 frames, within the plain version's memory) runs
+    # frames past the cap
+    if _check_pack(i_pack, "hq is", card, repeat=8, frames=4096) == 0:
+        raise AssertionError("no frame of the hq is pack check ran past the cap")
+
+
+def _parity_dc_is() -> None:
+    """The distortion-control and intensity rows against the JAX backend's
+    frozen bytes (the card's own within a ceiling per configuration; with
+    the CPU filterbank and MDCT exact) and the golden encoder's (the
+    telemetry corpus within the telemetry suite's ceilings). Each
+    configuration's rows run as one batch (encode_batch, whose bytes are
+    its sessions')."""
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+    from swiftmp3_tpu_torch.parallel import encode_batch
+    from tests.torch_inputs import DC_IS_OPTIONS, dc_is_options, dc_is_streams, golden_path, jax_path
+
+    for preset in DC_IS_OPTIONS:
+        o = dc_is_options(preset, MP3EncoderOptions)
+        flips = {"jax": 0, "golden": 0}
+        n_frames = 0
+        streams = dc_is_streams(preset)
+        card = encode_batch(o, list(streams.values()), frames_per_step=16)
+        with _CpuFilterbank():
+            swapped = encode_batch(o, list(streams.values()), frames_per_step=16)
+        for stem, got, got_cpu_fb in zip(streams, card, swapped):
+            with open(jax_path(f"{preset}_{stem}"), "rb") as fh:
+                ref = fh.read()
+            flips["jax"] += _compare_streams(got, ref, f"{preset} {stem} vs JAX")
+            n_frames += len(_frames(ref))
+            with open(golden_path(stem, preset), "rb") as fh:
+                flips["golden"] += _compare_streams(got, fh.read(), f"{preset} {stem} vs golden")
+            if got_cpu_fb != ref:
+                raise AssertionError(f"{preset} {stem}: {_compare_streams(got_cpu_fb, ref, preset)} "
+                                     "frames differ from the JAX bytes with the CPU filterbank and MDCT")
+        ceiling = DC_IS_GOLDEN_FLIP_CEILING.get(preset)
+        print(f"[parity dc is] {preset}: vs JAX {flips['jax']}/{n_frames} (ceiling "
+              f"{DC_IS_JAX_FLIP_CEILING[preset]}), with the CPU filterbank and MDCT 0/{n_frames}; "
+              f"vs golden {flips['golden']}/{n_frames}"
+              + (f" (ceiling {ceiling})" if ceiling is not None else " (structure)"), flush=True)
+        if flips["jax"] > DC_IS_JAX_FLIP_CEILING[preset] or (
+            ceiling is not None and flips["golden"] > ceiling
+        ):
+            raise AssertionError(f"{preset} byte flips above the pinned ceiling")
 
 
 def main() -> int:
@@ -912,6 +1068,11 @@ def main() -> int:
         del f_pack
     phase_done("hq96 and hq flags")
 
+    _hq_dc(mono_audio, card)
+    phase_done("hq dc")
+    _hq_is(card)
+    phase_done("hq is")
+
     # ---- 5. parity ---------------------------------------------------------
     fixture_flips, fixture_frames = 0, 0
     for name, kw, sig_kind, seconds, seed in COMPAT_FIXTURES:
@@ -1037,6 +1198,8 @@ def main() -> int:
         ):
             raise AssertionError(f"{preset} byte flips above the pinned ceiling")
     phase_done("parity hq flags")
+    _parity_dc_is()
+    phase_done("parity dc is")
 
     # ---- 6. result lines ----------------------------------------------------
     rows = [

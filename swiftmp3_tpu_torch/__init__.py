@@ -8,8 +8,8 @@ out under the same names, so a reader finds each counterpart by path.
 
 It covers the compat, spec_strict and hq chunk programs at MPEG-1 rates
 (the hq flags included: the static and adaptive lowpass, demand VBR,
-reservoir depth 1-8) on one device, through every entry point of the
-reference but the mesh:
+reservoir depth 1-8, distortion control and intensity stereo) on one
+device, through every entry point of the reference but the mesh:
 
     swiftmp3_tpu_torch.encoder.new_session(options)              # one stream
     swiftmp3_tpu_torch.parallel.BatchEncoder(options, B, T)      # B streams
@@ -17,8 +17,7 @@ reference but the mesh:
     swiftmp3_tpu_torch.parallel.StreamPool(options, lanes, T)    # serving
     python -m swiftmp3_tpu_torch in.wav out.mp3 [--device cpu]   # command line
 
-Distortion control, intensity stereo, LSF and free format raise
-NotImplementedError, naming their ROADMAP item.
+LSF and free format raise NotImplementedError, naming their ROADMAP item.
 
 Every entry point runs on the card ("cuda") unless the caller passes
 `device="cpu"`; nothing falls back to the CPU on its own. Every Pallas

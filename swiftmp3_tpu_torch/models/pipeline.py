@@ -1,7 +1,8 @@
 """The chunk program in PyTorch: chunk-parallel DSP + small integer loops
 over T. Twin of `swiftmp3_tpu.models.pipeline.make_chunk_fn` for the compat
 preset, the spec_strict preset and the hq preset with its flags (the static
-and adaptive lowpass, demand VBR, reservoir depth 1-8) at MPEG-1 rates.
+and adaptive lowpass, demand VBR, reservoir depth 1-8, distortion control,
+intensity stereo) at MPEG-1 rates.
 
 Per chunk of T frames x B streams:
 
@@ -14,7 +15,15 @@ Per chunk of T frames x B streams:
     strict-entropy sweep pricing all 20 gains exactly (plain PyTorch, as
     the reference computes it outside any Pallas kernel), with the linbits
     ESC tables under linbits_tables. The subband lowpass masks the MDCT
-    output (per granule under adaptive_lowpass).
+    output (per granule under adaptive_lowpass). Under intensity_stereo,
+    gated frames (no mixed granule on the raw L/R) code raw L/R, and those
+    with a qualifying region emit intensity: the left spectrum carries L + R
+    on the region's lines, the right zero, and the right channel's
+    scalefactor slots are priced to hold the marker 7. Under
+    distortion_control, each of dc_passes passes quantizes a probe at the
+    static equal share, bumps the scalefactors of violating bands in
+    all-LONG frames and sweeps again; the demand probes keep the first
+    sweep.
   Phase 2 (loop over T, integers only): bitrate (the energy law, or under
     vbr_demand the smallest rate whose slot covers the frame's priced
     demand), padding, reservoir budget (split by the demand-donation law
@@ -26,8 +35,10 @@ Per chunk of T frames x B streams:
   Phase 3 (parallel): re-quantize at the selected gains; compat: regions,
     preflag, table-15 chunks; strict: the entropy layout, a second integer
     loop over T on the actual bits (the real `stream_len` and
-    main_data_begin), scalefactor and pair/quad chunks. Then the main_data
-    pack (kernel K2) and the packed output.
+    main_data_begin), scalefactor and pair/quad chunks; intensity's
+    knife-edge zeroing before the layout and its position slots after it.
+    Then the main_data pack (kernel K2) and the packed output
+    (mode_extension 0b01 on intensity frames).
 
 The carry and the packed output have the JAX program's names, shapes, dtypes
 and byte layout, so `fetch_outputs` reads both and checkpoints cross between
@@ -38,6 +49,7 @@ frame.
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import numpy as np
@@ -47,7 +59,7 @@ from ..io.framing import FrameResult
 from ..io.sideinfo import GranuleInfo
 from ..ops import dsp, kernels
 from ..options import SAMPLES_PER_GRANULE, MP3EncoderOptions, Mode
-from ..tables import BITRATE_TABLE_V1, bitrate_index, bitrate_value, mode_bits
+from ..tables import BITRATE_TABLE_V1, QCAP_LINBITS, bitrate_index, bitrate_value, mode_bits
 
 MAX_FRAME_MAIN_BITS = 1152 * 15  # all pair slots at 15 bits
 # the MPEG-1 Layer III bitrates (kbps) demand VBR chooses among
@@ -98,15 +110,11 @@ def lowpass_cut(options: MP3EncoderOptions) -> int | None:
 
 def check_supported(options: MP3EncoderOptions) -> None:
     """Raise NotImplementedError for any option outside the port (the
-    compat, spec_strict and hq chunk programs at MPEG-1 rates), naming the
-    ROADMAP Queue 1 item that brings it. A flag the reference's chunk
-    program never reads at this configuration (intensity stereo above 24
-    kbps a channel, distortion control below 112 kbps a channel) encodes as
-    the flag-off program, as the reference's does."""
+    compat, spec_strict and hq chunk programs at MPEG-1 rates, distortion
+    control and intensity stereo included), naming the ROADMAP Queue 1 item
+    that brings it."""
     o = options
     unsupported = [
-        (o.distortion_control_active, "distortion_control", 9),
-        (o.intensity_stereo_active and o.channels == 2, "intensity_stereo", 10),
         (bool(o.lsf), "LSF sample rates", 11),
         (o.free_format, "free_format", 11),
     ]
@@ -114,8 +122,7 @@ def check_supported(options: MP3EncoderOptions) -> None:
         if active:
             raise NotImplementedError(
                 f"{name} is not in the PyTorch port yet (ROADMAP Queue 1 "
-                f"item {item}); the port covers the compat, spec_strict and "
-                "hq chunk programs"
+                f"item {item}); the port covers the MPEG-1 chunk programs"
             )
 
 
@@ -228,6 +235,122 @@ def main_data_cap(options: MP3EncoderOptions) -> int:
     return cap + (cap & 1)
 
 
+def intensity_stage(
+    spectra: torch.Tensor, block: torch.Tensor, gate: torch.Tensor, sample_rate: int
+) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """The intensity analysis and transform (pipeline.py:452-505). spectra
+    [B, 2, T, gr, 576], block [B, 2, T, gr] (shared across the channels of
+    gated frames), gate [B, T]. A gated frame emits intensity when one of
+    its granules has a region (per window in pure-short granules); its left
+    spectrum then carries L + R on the region's lines and its right zero.
+    Returns (spectra, emit [B, T], the sets the post-walk reads: positions
+    and summed bands, long [B, T, gr, 21] and short [B, T, gr, 12, 3], and
+    the right channel's granules of emitting frames [B, 2, T, gr] split by
+    layout, right_long and right_short)."""
+    is_short = block[:, 0] == dsp.BLOCK_SHORT  # [B, T, gr]
+    left, right = spectra[:, 0], spectra[:, 1]
+    pos, region, has_region, mask_l = dsp.intensity_analyze_device(left, right, sample_rate)
+    pos_s, region_s, has_region_s, mask_s = dsp.intensity_analyze_short_device(
+        left, right, sample_rate
+    )
+    has_g = torch.where(is_short, torch.any(has_region_s, dim=-1), has_region)
+    emit = gate & torch.any(has_g, dim=-1)
+    mask_l = mask_l * (emit[:, :, None] & has_region)[..., None].to(torch.float32)
+    mask_s = mask_s * emit[:, :, None, None].to(torch.float32)
+    m = torch.where(is_short[..., None], mask_s, mask_l)
+    spectra = torch.stack([left + right * m, right * (1.0 - m)], dim=1)
+    right_ch = (torch.arange(2, device=spectra.device)[None, :, None, None] == 1) & emit[
+        :, None, :, None
+    ]
+    sets = {
+        "pos": pos,
+        "summed": region & has_region[..., None],
+        "pos_s": pos_s,
+        "summed_s": region_s & has_region_s[..., None, :],
+        "right_long": right_ch & ~is_short[:, None],
+        "right_short": right_ch & is_short[:, None],
+    }
+    return spectra, emit, sets
+
+
+def intensity_pad(part2: torch.Tensor, sfd: dict, sets: dict) -> torch.Tensor:
+    """part2 priced with the right channel's slots of emitting frames at
+    least 7 (pipeline.py:547-565): the long pad on long-layout granules, the
+    36-slot pad on pure-short ones."""
+    pad_l = dsp.intensity_padded_part2_device(sfd)
+    pad_s = dsp.intensity_padded_part2_short_device(sfd)
+    return torch.where(
+        sets["right_long"], pad_l, torch.where(sets["right_short"], pad_s, part2)
+    )
+
+
+def intensity_q_fixup(q: torch.Tensor, sets: dict, sample_rate: int) -> torch.Tensor:
+    """The knife-edge zeroing of the selected quantization (pipeline.py:
+    909-923): long-layout granules on their natural order; pure-short ones
+    through the short reorder to the natural order and back."""
+    q = dsp.intensity_q_fixup(q, sets["right_long"], sample_rate)
+    q_nat = dsp.reorder_stream_to_natural(q, sample_rate, False)
+    q_nat = dsp.intensity_q_fixup_short(q_nat, sets["right_short"], sample_rate)
+    q_s = dsp.reorder_natural_to_stream(q_nat, sample_rate, False)
+    return torch.where(sets["right_short"][..., None], q_s, q)
+
+
+def intensity_post_walk_sfd(
+    sfd: dict, quantized: torch.Tensor, sets: dict, sample_rate: int
+) -> dict:
+    """The right channel's position slots of emitting frames after the walk
+    (pipeline.py:928-956): the long law on long-layout granules, the
+    per-window law on pure-short ones (on the natural view of the fixed
+    quantization)."""
+    B, _, T, n_gr = sets["right_long"].shape
+    shape = (B, 2, T, n_gr)
+    sfd = dsp.intensity_sfd_device(
+        sfd,
+        quantized,
+        sets["pos"][:, None].expand(*shape, 21),
+        sets["summed"][:, None].expand(*shape, 21),
+        sets["right_long"],
+        sample_rate,
+    )
+    return dsp.intensity_sfd_short_device(
+        sfd,
+        dsp.reorder_stream_to_natural(quantized, sample_rate, False),
+        sets["pos_s"][:, None].expand(*shape, 12, 3),
+        sets["summed_s"][:, None].expand(*shape, 12, 3),
+        sets["right_short"],
+        sample_rate,
+    )
+
+
+def distortion_pass(
+    pre: dict,
+    spectra: torch.Tensor,
+    sfd: dict,
+    engaged: torch.Tensor,
+    probe_budget: int,
+    sample_rate: int,
+    proportional: bool,
+) -> tuple[dict, torch.Tensor]:
+    """One distortion-control pass (pipeline.py:641-664): the probe selection
+    at the static equal-share budget on the last sweep, its quantization,
+    the bumps, and the bumped scalefactors on engaged granules. Returns
+    (the scalefactor dict, the initial gains of the next sweep)."""
+    budget = torch.full(pre["gstart"].shape, probe_budget, dtype=torch.int32, device=spectra.device)
+    k, fit, _ = dsp.rate_loop_select(pre["bits"], pre["evaluated"], pre["k_budget"], budget)
+    gains = pre["gstart"] + 4 * k
+    q = dsp.quantize_at_gains(
+        pre["mag"], pre["sign_neg"], gains[..., None], iso=pre["iso"],
+        qcap=QCAP_LINBITS, floor=False,
+    )[..., 0, :]
+    gain = torch.where(fit, gains, torch.clamp(gains + 4, max=255)).to(torch.int32)
+    bumps = dsp.distortion_bumps_device(
+        spectra, q, gain, sfd["sf"], sample_rate, proportional=proportional
+    )
+    sfd = dsp.distortion_sfd_device(sfd, bumps, engaged, sample_rate)
+    g0 = dsp.initial_gain_scaled(spectra, sfd["mag_scale"], target=LINBITS_Q_TARGET)
+    return sfd, g0
+
+
 def make_chunk_fn(options: MP3EncoderOptions):
     """Build the chunk encode function
     (carry, pcm [B,T,1152*ch], final [B,T], valid [B,T], la=None) ->
@@ -267,6 +390,11 @@ def make_chunk_fn(options: MP3EncoderOptions):
     vbr_demand = is_vbr and options.vbr_demand
     deep = options.reservoir_depth > 1
     cut_sb = lowpass_cut(options)
+    intensity = options.intensity_stereo_active and ch == 2
+    # distortion control's probe budget: the static equal share of the base
+    # rate's main data per granule (pipeline.py:614-622)
+    base_main = (slots_per_kbps * base_kbps * 1000) // sr - 4 - crc_size - side_size
+    probe_budget = min((base_main * 8) // n_gran, PART23_MAX_BITS)
     i32 = torch.int32
     if vbr_demand:
         cands, cand_slot_bits = demand_vbr_candidates(options)
@@ -320,22 +448,18 @@ def make_chunk_fn(options: MP3EncoderOptions):
         pcm_bt = pcm.reshape(B, T * pcm.shape[-1])
         use_ms = None  # per-frame M/S decision (joint stereo only)
         left = right = None
-        if ch == 1:
-            pcm_chunk = pcm_bt[:, None, :]
-        else:
+        raw_blocks = None  # the raw L/R transient verdicts [B, 2, T, gr]
+
+        def raw_verdicts():
+            nonlocal raw_blocks
+            if raw_blocks is None:
+                raw_g = torch.stack([left, right], dim=1).reshape(B, 2, T, n_gr, 576)
+                raw_blocks = dsp.transient_frame(raw_g)[0]
+            return raw_blocks
+
+        if ch == 2:
             left = pcm_bt[:, 0::2].reshape(B, T, spf)
             right = pcm_bt[:, 1::2].reshape(B, T, spf)
-            if joint:
-                use_ms, c0, c1 = dsp.stereo_decide(
-                    left, right, iso_matrix=options.iso_ms_matrix,
-                    symmetric=options.ms_symmetric,
-                )
-            else:
-                c0, c1 = left, right
-            pcm_chunk = torch.stack([c0, c1], dim=1).reshape(B, ch, T * spf)
-        granule_pcm = pcm_chunk.reshape(B, ch, T, n_gr, 576)
-
-        S, full_x = dsp.polyphase_chunk_matmul(carry["fb_hist"], pcm_chunk)
         if win_seq:
             if la is None:
                 raise ValueError(
@@ -346,14 +470,49 @@ def make_chunk_fn(options: MP3EncoderOptions):
                 carry, pcm_bt, left, right, dsp.ingest(la), final, valid
             )
             sb_gain_b = torch.zeros((B, ch, T, n_gr, 3), dtype=i32, device=dev)
+        is_gate = is_shared_blk = None  # [B, T]; [B, T, gr]
+        if ch == 1:
+            pcm_chunk = pcm_bt[:, None, :]
         else:
+            if joint:
+                use_ms, c0, c1 = dsp.stereo_decide(
+                    left, right, iso_matrix=options.iso_ms_matrix,
+                    symmetric=options.ms_symmetric,
+                )
+            else:
+                c0, c1 = left, right
+            if intensity:
+                # The intensity gate (pipeline.py:296-366): frames whose
+                # granules are all LONG-layout or pure SHORT on the raw L/R
+                # (the sequencing blocks, else the raw transient verdicts,
+                # shared across channels) code raw L/R and may emit
+                # intensity; under ms_symmetric side-dominant M/S frames opt
+                # out. use_ms is masked on gated frames.
+                if win_seq:
+                    is_gate = torch.all(block_b[:, 0] != dsp.BLOCK_MIXED, dim=-1)
+                else:
+                    is_shared_blk = torch.amax(raw_verdicts(), dim=1)
+                    is_gate = torch.all(is_shared_blk != dsp.BLOCK_MIXED, dim=-1)
+                if options.ms_symmetric:
+                    _, _, mid_e, side_e = dsp.ms_energies(left, right, options.iso_ms_matrix)
+                    is_gate = is_gate & ~(use_ms & (mid_e < side_e * 0.4))
+                c0 = torch.where(is_gate[..., None], left, c0)
+                c1 = torch.where(is_gate[..., None], right, c1)
+                use_ms = use_ms & ~is_gate
+            pcm_chunk = torch.stack([c0, c1], dim=1).reshape(B, ch, T * spf)
+        granule_pcm = pcm_chunk.reshape(B, ch, T, n_gr, 576)
+
+        S, full_x = dsp.polyphase_chunk_matmul(carry["fb_hist"], pcm_chunk)
+        if not win_seq:
             block_b, sb_gain_b = dsp.transient_frame(granule_pcm)  # [B,ch,T,gr], [..,3]
             if options.shared_ms_blocks and use_ms is not None:
                 # M/S frames carry one window layout across both channels: the
                 # raw L/R verdicts, the more transient winning (pipeline.py:388-403)
-                raw_g = torch.stack([left, right], dim=1).reshape(B, 2, T, n_gr, 576)
-                shared = torch.amax(dsp.transient_frame(raw_g)[0], dim=1, keepdim=True)
+                shared = torch.amax(raw_verdicts(), dim=1, keepdim=True)
                 block_b = torch.where(use_ms[:, None, :, None], shared, block_b)
+            if is_shared_blk is not None:
+                # intensity-gated frames share the raw verdict (pipeline.py:404-411)
+                block_b = torch.where(is_gate[:, None, :, None], is_shared_blk[:, None], block_b)
             if iso_quant:
                 # the unit-gain law emits no per-window gains (pipeline.py:412-417)
                 sb_gain_b = torch.zeros_like(sb_gain_b)
@@ -365,7 +524,12 @@ def make_chunk_fn(options: MP3EncoderOptions):
         if cut_sb is not None:
             spectra = lowpass_stage(spectra, block_b, cut_sb, options.adaptive_lowpass)
 
+        is_emit = None  # [B, T] frames that emit mode_extension 0b01
+        if is_gate is not None:
+            spectra, is_emit, is_sets = intensity_stage(spectra, block_b, is_gate, sr)
+
         sfd = scfsi_nib = sf_write = None
+        pad_part2 = None
         if strict:
             is_long_b = block_b == dsp.BLOCK_LONG
             # START and STOP granules take the long scalefactor layout and
@@ -386,17 +550,45 @@ def make_chunk_fn(options: MP3EncoderOptions):
                     # granule 1 skips the band groups equal to granule 0's
                     scfsi_nib, sf_write = dsp.scfsi_device(sfd["sf"], long_layout_b)
                     part2 = dsp.scfsi_part2_device(sfd, sf_write)
+                if is_emit is not None:
+                    # the intensity pricing pad (pipeline.py:547-565): the
+                    # post-walk overwrite may grow the right channel's slots
+                    # of emitted frames to the marker 7. Distortion control
+                    # never engages those frames, so the first scalefactors
+                    # price them in every pass.
+                    pad_part2 = functools.partial(intensity_pad, sfd=sfd, sets=is_sets)
             else:
                 g0 = dsp.initial_gain(spectra, iso=iso_quant)
                 mag_scale = part2 = None
-            pre = dsp.rate_loop_precompute_strict(
-                spectra, g0, sr, is_long_b, iso_quant, options.count1_coding,
-                options.region_table_select, mag_scale=mag_scale, part2=part2,
-                block=block_b, iso_short=iso_short, linbits=linbits,
-            )
+
+            def sweep(g0, mag_scale, part2):
+                if pad_part2 is not None:
+                    part2 = pad_part2(part2)
+                return dsp.rate_loop_precompute_strict(
+                    spectra, g0, sr, is_long_b, iso_quant, options.count1_coding,
+                    options.region_table_select, mag_scale=mag_scale, part2=part2,
+                    block=block_b, iso_short=iso_short, linbits=linbits,
+                )
+
+            pre = sweep(g0, mag_scale, part2)
+            # the demand probes read the first pass's table (pipeline.py:600)
+            demand_bits = pre["bits"]
+            if options.distortion_control_active:
+                engaged = torch.all(block_b == dsp.BLOCK_LONG, dim=(1, 3))  # [B, T] all-LONG frames
+                if is_emit is not None:
+                    engaged = engaged & ~is_emit
+                engaged = engaged[:, None, :, None].expand(block_b.shape)
+                for _ in range(options.dc_passes):
+                    sfd, g0 = distortion_pass(
+                        pre, spectra, sfd, engaged, probe_budget, sr, options.dc_proportional
+                    )
+                    mag_scale, part2 = sfd["mag_scale"], sfd["part2"]
+                    pre = None  # release the pass's sweep before the next
+                    pre = sweep(g0, mag_scale, part2)
         else:
             g0 = dsp.initial_gain(spectra, iso=iso_quant)
             pre = dsp.rate_loop_precompute(spectra, g0, iso=iso_quant)
+            demand_bits = pre["bits"]
 
         def tm(x):  # [B, ch, T, gr, ...] -> [T, B, G, ...], G = gr*ch + c
             rest = tuple(range(4, x.dim()))
@@ -415,11 +607,12 @@ def make_chunk_fn(options: MP3EncoderOptions):
         evaluated_t = tm(pre["evaluated"])
         k_budget_t = tm(pre["k_budget"])
         if demand_budget:
-            demand_t = tm(pre["bits"][..., K_DEMAND])  # [T, B, G]
+            demand_t = tm(demand_bits[..., K_DEMAND])  # [T, B, G]
         if vbr_demand:
-            frame_demand_t = torch.sum(bits_t[..., demand_k], dim=-1, dtype=i32)  # [T, B]
+            frame_demand_t = torch.sum(tm(demand_bits[..., demand_k]), dim=-1, dtype=i32)  # [T, B]
             slots_c = torch.tensor(cand_slot_bits, dtype=i32, device=dev)
             cands_c = torch.tensor(cands, dtype=i32, device=dev)
+        del demand_bits
 
         def keep(new, old, val):  # invalid frames freeze the carry
             return {
@@ -524,7 +717,17 @@ def make_chunk_fn(options: MP3EncoderOptions):
         # ---------------- Phase 3: parallel finalize (batch-major) --------
         new_carry = dict(c)
         if strict:
-            gain_b, quantized, lay = dsp.strict_finalize(pre, bm(k_sel), bm(has_fit))
+            q_fixup = None
+            if is_emit is not None:
+                q_fixup = functools.partial(intensity_q_fixup, sets=is_sets, sample_rate=sr)
+            gain_b, quantized, lay = dsp.strict_finalize(
+                pre, bm(k_sel), bm(has_fit), q_fixup=q_fixup
+            )
+            if is_emit is not None:
+                # the post-walk position slots and the actual part2
+                # (pipeline.py:928-957)
+                sfd = intensity_post_walk_sfd(sfd, quantized, is_sets, sr)
+                part2 = sfd["part2"]
             # part2_3_length and the reservoir on the ACTUAL bits of the
             # selected gains (pipeline.py:958-1006)
             part23 = tm(lay["bits"] + (part2 if part2 is not None else 0))
@@ -589,6 +792,8 @@ def make_chunk_fn(options: MP3EncoderOptions):
             mode_ext_t = torch.where(use_ms.transpose(0, 1), 2, 0)
         else:
             mode_ext_t = torch.full((T, B), mode_ext, dtype=i32, device=dev)
+        if is_emit is not None:
+            mode_ext_t = torch.where(is_emit.transpose(0, 1), 1, mode_ext_t)  # intensity
         meta = torch.cat(
             [
                 br_idx[..., None],

@@ -1,5 +1,5 @@
-"""Batched granule DSP of the compat, spec_strict and hq chunk programs, in
-PyTorch.
+"""Batched granule DSP of the compat, spec_strict and hq chunk programs
+(distortion control and intensity stereo included), in PyTorch.
 
 Twin of `swiftmp3_tpu.ops.dsp` for the ops those presets run. Same shapes and
 layouts as the JAX functions (batch-leading, [..., 576] granule rows), same
@@ -261,6 +261,18 @@ def ingest(pcm: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(pcm.to(_F32), nan=0.0, posinf=0.0, neginf=0.0)
 
 
+def ms_energies(
+    left: torch.Tensor, right: torch.Tensor, iso_matrix: bool = False
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mid, side, mid energy, side energy) of a frame pair [..., 1152]:
+    (L +- R)/2, or (L +- R)/sqrt(2) under iso_matrix."""
+    half = float(np.float32(1.0 / np.sqrt(2.0))) if iso_matrix else 0.5
+    mid = (left + right) * half
+    side = (left - right) * half
+    n = float(left.shape[-1])
+    return mid, side, torch.sum(mid * mid, dim=-1) / n, torch.sum(side * side, dim=-1) / n
+
+
 def stereo_decide(
     left: torch.Tensor,
     right: torch.Tensor,
@@ -272,12 +284,7 @@ def stereo_decide(
     compat /2 (the decision is scale-invariant); symmetric
     (options.ms_symmetric): also M/S when mid energy < 0.4 x side energy.
     left/right: [..., 1152]. Returns (use_ms [...] bool, ch0, ch1)."""
-    half = float(np.float32(1.0 / np.sqrt(2.0))) if iso_matrix else 0.5
-    mid = (left + right) * half
-    side = (left - right) * half
-    n = float(left.shape[-1])
-    mid_e = torch.sum(mid * mid, dim=-1) / n
-    side_e = torch.sum(side * side, dim=-1) / n
+    mid, side, mid_e, side_e = ms_energies(left, right, iso_matrix)
     use_ms = side_e < mid_e * 0.4
     if symmetric:
         use_ms = use_ms | (mid_e < side_e * 0.4)
@@ -1418,3 +1425,390 @@ def scfsi_part2_device(sfd: dict, write: torch.Tensor) -> torch.Tensor:
     (dsp.py:2591-2595)."""
     nbits = torch.where(_write_slots_device(write), sfd["slot_nbits"], 0)
     return torch.sum(nbits, dim=-1, dtype=_I32)
+
+
+# --- Distortion control (twin of dsp.py:2045-2189) ------------------------------
+
+# Copies of swiftmp3_tpu/ops/dsp.py _DC_RATIO, _DC_BUMP, _DC_MASK_OFFSET,
+# _DC_CAPS and _QUARTER_POS, and of swiftmp3_tpu/ops/reference.py DC_BUMP_MAX
+# (tests hold them equal): bump bands whose error energy passes DC_RATIO x the
+# spread-mask target by DC_BUMP scalefactor steps (proportional law: by
+# ceil(log4(noise / mask)), 1..DC_BUMP_MAX), the mask DC_MASK_OFFSET binary
+# exponents under the spread band peak; the slen1/slen2 field caps.
+DC_RATIO = 2.0
+DC_BUMP = 3
+DC_MASK_OFFSET = 6
+DC_CAPS = np.asarray([15] * 11 + [7] * 10, dtype=np.int32)
+DC_BUMP_MAX = 6
+QUARTER_POS = (2.0 ** (np.arange(4) / 4.0)).astype(np.float32)  # 2^(r/4)
+
+
+def build_dc_steps() -> np.ndarray:
+    """[256] float32 2^((g - 210)/4) by gain: 2^(r/4) as float32 scaled by
+    the exact power of two 2^((g - 210) >> 2) (the correctly rounded step
+    dsp.py:2069-2076 reconstructs with ldexp)."""
+    e = np.arange(256) - 210
+    return np.ldexp(QUARTER_POS[e & 3], e >> 2).astype(np.float32)
+
+
+def _band_members(sample_rate: int) -> np.ndarray:
+    """[21, 576] float32 long band membership (twin of dsp._band_members)."""
+    bounds = _long_bounds(sample_rate)
+    coef = np.arange(576)
+    return np.stack(
+        [(coef >= bounds[b]) & (coef < bounds[b + 1]) for b in range(21)]
+    ).astype(np.float32)
+
+
+def _pow2_exact(e: torch.Tensor) -> torch.Tensor:
+    """float64 2^e for int e, built from its exponent bits (exact; e clamped
+    to the normal range, far past where a float32 product underflows)."""
+    e = torch.clamp(e.to(torch.int64), -1022, 1023)
+    return ((e + 1023) << 52).view(torch.float64)
+
+
+def _ldexp_exact(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """float32 x * 2^e, correctly rounded (through float64, where the product
+    is exact), as numpy's ldexp."""
+    return (x.to(torch.float64) * _pow2_exact(e)).to(_F32)
+
+
+def _spread_max(pe: torch.Tensor, slope: int) -> torch.Tensor:
+    """The two max-plus scans of the masking spread (dsp.py:2097-2101) over
+    the last axis: forward M[b] = max(pe[b], M[b-1] - slope), then backward
+    M[b] = max(M[b], M[b+1] - slope), as two running maxima (integers,
+    exact)."""
+    ramp = slope * torch.arange(pe.shape[-1], dtype=pe.dtype, device=pe.device)
+    fwd = torch.cummax(pe + ramp, dim=-1).values - ramp
+    back = torch.flip(torch.cummax(torch.flip(fwd - ramp, [-1]), dim=-1).values, [-1])
+    return back + ramp
+
+
+def distortion_bumps_device(
+    spectrum: torch.Tensor,
+    q: torch.Tensor,
+    gain: torch.Tensor,
+    sf: torch.Tensor,
+    sample_rate: int,
+    proportional: bool = False,
+) -> torch.Tensor:
+    """Per-band bumps [..., 21] int32 (dsp.py:2057-2125): the probe
+    quantization q [..., 576] at `gain` [...] reconstructed by the ISO decode
+    law at scalefac_scale 1 (sign |q|^(4/3) 2^((gain-210)/4) 2^(-sf_b)), each
+    band's error energy against the spread-mask target n_lines 2^(2 thr_exp);
+    violating bands bump by DC_BUMP, or under the proportional law by 1 plus
+    the number of k in 1..DC_BUMP_MAX-1 with e2 > thr2n 4^k (no log2). The
+    band energies are float sums (a matmul with the band membership), so a
+    band on the threshold may decide otherwise than XLA's sum order."""
+    dev = spectrum.device
+    step = _dc_table("steps", sample_rate, dev)[torch.clamp(gain, 0, 255).long()]
+    mag = torch.pow(torch.abs(q).to(_F32), float(np.float32(4.0 / 3.0))) * step[..., None]
+    xr = torch.where(q < 0, -mag, mag)
+    # 2^(-sf_b) on each band's lines, 1.0 past the last band
+    pow2 = torch.nn.functional.pad(_dc_table("neg_pow2", sample_rate, dev)[sf.long()], (0, 16), value=1.0)
+    scale = pow2[..., _rate_table("slot_maps", sample_rate, dev)[0]]
+    err = xr * scale - spectrum
+    e2 = torch.matmul(err * err, _dc_table("members_t", sample_rate, dev))  # [..., 21]
+
+    EMPTY = -(1 << 14)
+    lb = _long_bounds(sample_rate)
+    absx = torch.abs(spectrum)
+    pb = torch.stack(
+        [torch.amax(absx[..., int(lb[b]) : int(lb[b + 1])], dim=-1) for b in range(21)], dim=-1
+    )
+    pe = torch.where(pb > 0, _exponent(pb), EMPTY)
+    thr_exp = _spread_max(pe, PSY_SLOPE) - DC_MASK_OFFSET
+    thr2n = _ldexp_exact(_dc_table("n_lines", sample_rate, dev), 2 * thr_exp)
+    violated = e2 > DC_RATIO * thr2n
+    if not proportional:
+        return torch.where(violated, DC_BUMP, 0).to(_I32)
+    steps = torch.ones(e2.shape, dtype=_I32, device=dev)
+    for k in range(1, DC_BUMP_MAX):
+        steps = steps + (e2 > _ldexp_exact(thr2n, torch.full_like(thr_exp, 2 * k))).to(_I32)
+    return torch.where(violated, steps, 0).to(_I32)
+
+
+def _rebuild_long_sfd_device(
+    sfd: dict, sf2: torch.Tensor, engaged: torch.Tensor, sample_rate: int
+) -> dict:
+    """The long layout rebuilt from a replacement sf [..., 21] on `engaged`
+    granules [...]; every other granule keeps the original fields exactly
+    (dsp.py:2140-2178, shared by distortion control and intensity stereo)."""
+    new = _long_finish(sf2, sample_rate)
+    out = {}
+    for name, v in new.items():
+        e = engaged.reshape(engaged.shape + (1,) * (v.dim() - engaged.dim()))
+        out[name] = torch.where(e, v, sfd[name])
+    return out
+
+
+def distortion_sfd_device(
+    sfd: dict, bumps: torch.Tensor, engaged: torch.Tensor, sample_rate: int
+) -> dict:
+    """The scalefactor dict after the bumps (dsp.py:2127-2137): engaged
+    granules (all-LONG frames) take sf + bumps within the slen caps and the
+    rebuilt long layout; the others keep every field."""
+    caps = _dc_table("caps", sample_rate, sfd["sf"].device)
+    sf2 = torch.where(engaged[..., None], torch.minimum(sfd["sf"] + bumps, caps), sfd["sf"])
+    return _rebuild_long_sfd_device(sfd, sf2.to(_I32), engaged, sample_rate)
+
+
+# --- Intensity stereo (twin of dsp.py:2181-2526; MPEG-1 only) ---------------------
+
+# Copies of swiftmp3_tpu/ops/reference.py IS_MIN_SFB, IS_CORR, IS_NEG, IS_SFM
+# and IS_MIN_SFB_SHORT (tests hold them equal): a band is coded as intensity
+# when it is effectively panned (the quieter channel under IS_NEG of the
+# louder) or correlated (>= IS_CORR), in a contiguous region from the top no
+# lower than band IS_MIN_SFB (short: IS_MIN_SFB_SHORT), unless the would-be
+# carrier is noise-flat (spectral flatness above IS_SFM).
+IS_MIN_SFB = 8
+IS_CORR = 0.5
+IS_NEG = 0.02
+IS_SFM = 0.15
+IS_MIN_SFB_SHORT = 4
+_IS_RATES = (44100, 48000, 32000)  # intensity encoding is MPEG-1 only
+
+
+def _is_members_ext(sample_rate: int) -> np.ndarray:
+    """[21, 576] float32 band membership with band 20 extended to line 576
+    (the sfb21 tail rides band 20's position; dsp.py:2210-2221)."""
+    bounds = _long_bounds(sample_rate)
+    coef = np.arange(576)
+    return np.stack(
+        [(coef >= bounds[b]) & (coef < (bounds[b + 1] if b < 20 else 576)) for b in range(21)]
+    ).astype(np.float32)
+
+
+def _sb_bounds_for(sample_rate: int) -> np.ndarray:
+    """The short bands' 13 per-window line bounds (dsp.py:2368-2371)."""
+    return np.asarray(short_band_bounds(sample_rate)[:13], dtype=np.int32)
+
+
+def _is_members_short(sample_rate: int) -> np.ndarray:
+    """[36, 576] float32 per-(band, window) membership of the NATURAL layout,
+    row 3 s + w, band 11 folding the per-window tail to line 192
+    (dsp.py:2351-2365)."""
+    bounds = short_band_bounds(sample_rate)
+    line = np.arange(576) // 3
+    w_of = np.arange(576) % 3
+    rows = []
+    for s in range(12):
+        hi = int(bounds[s + 1]) if s < 11 else 192
+        for w in range(3):
+            rows.append((line >= int(bounds[s])) & (line < hi) & (w_of == w))
+    return np.stack(rows).astype(np.float32)
+
+
+def _is_bounds(sample_rate: int) -> np.ndarray:
+    """dsp._IS_BOUNDS[sample_rate]: [0] + the long band ends, 22 entries."""
+    return _long_bounds(sample_rate).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _dc_table(name: str, sample_rate: int, device: torch.device) -> torch.Tensor:
+    """The constants of distortion control and intensity stereo on a device:
+    the band membership matrices transposed for band sums by matmul, each
+    coefficient's band (long, extended to 576) and (band, window) slot
+    (short), the steps and the small tables."""
+    if name == "steps":
+        arr = build_dc_steps()
+    elif name == "neg_pow2":
+        arr = (2.0 ** -np.arange(16)).astype(np.float32)
+    elif name == "caps":
+        arr = DC_CAPS
+    elif name == "n_lines":
+        arr = np.diff(_long_bounds(sample_rate)).astype(np.float32)
+    elif name == "members_t":
+        arr = np.ascontiguousarray(_band_members(sample_rate).T)
+    elif name == "is_members_t":
+        arr = np.ascontiguousarray(_is_members_ext(sample_rate).T)
+    elif name == "is_short_members_t":
+        arr = np.ascontiguousarray(_is_members_short(sample_rate).T)
+    elif name == "is_band_of":  # long band of each coefficient, band 20 to 576
+        arr = np.argmax(_is_members_ext(sample_rate), axis=0).astype(np.int64)
+    else:  # "is_slot_of": the (band, window) slot 3 s + w of each coefficient
+        arr = np.argmax(_is_members_short(sample_rate), axis=0).astype(np.int64)
+    return torch.from_numpy(arr).to(device)
+
+
+def _carrier_noise_flat_device(c: torch.Tensor) -> torch.Tensor:
+    """Spectral flatness of the would-be carrier c [..., W] over its live
+    (nonzero) lines above IS_SFM, or no live line (dsp.py:2191-2207; the
+    adaptive lowpass zero-fills the tail). Returns bool [...]."""
+    hb2 = c * c
+    live = hb2 > 0
+    n_live = torch.sum(live, dim=-1)
+    denom = torch.clamp(n_live, min=1).to(_F32)
+    m = torch.sum(hb2, dim=-1) / denom
+    logs = torch.where(live, torch.log(torch.where(live, hb2, 1.0)), 0.0)
+    g = torch.exp(torch.sum(logs, dim=-1) / denom)
+    return (n_live == 0) | (g / (m + 1e-20) > float(np.float32(IS_SFM)))
+
+
+def _is_laws(el, er, num, min_band: int, band_axis: int):
+    """The per-band laws shared by the long and short analyses: positions,
+    and the bands that qualify (panned or correlated, at or above
+    min_band) in a contiguous region from the top along band_axis."""
+    pos = torch.clamp(
+        torch.round(torch.atan2(torch.sqrt(el), torch.sqrt(er)) * float(np.float32(12.0 / np.pi))),
+        0,
+        6,
+    ).to(_I32)
+    panned = torch.minimum(el, er) <= float(np.float32(IS_NEG)) * torch.maximum(el, er)
+    # NaN where a band energy is zero, which `panned` covers (NaN >= x is False)
+    corr = num / torch.sqrt(el * er)
+    n_bands = el.shape[band_axis]
+    band = torch.arange(n_bands, device=el.device).reshape((n_bands,) + (1,) * (-1 - band_axis))
+    ok = (panned | (corr >= IS_CORR)) & (band >= min_band)
+    # band b is in the region iff every band from b to the top qualifies
+    region = torch.flip(torch.cumprod(torch.flip(ok.to(_I32), [band_axis]), band_axis), [band_axis])
+    return pos, region.bool()
+
+
+def intensity_analyze_device(
+    spec_l: torch.Tensor, spec_r: torch.Tensor, sample_rate: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-granule intensity analysis of long-layout spectrum pairs [..., 576]
+    (dsp.py:2232-2279). Returns (pos [..., 21] int32 pan positions, region
+    [..., 21] bool, has_region [...] bool, line_mask [..., 576] float32 1.0
+    on region lines). The band energies and correlations are sums (a matmul
+    with the band membership), so a band on a threshold may decide otherwise
+    than XLA's sum order."""
+    dev = spec_l.device
+    M = _dc_table("is_members_t", sample_rate, dev)
+    el = torch.matmul(spec_l * spec_l, M)
+    er = torch.matmul(spec_r * spec_r, M)
+    num = torch.matmul(spec_l * spec_r, M)
+    pos, region = _is_laws(el, er, num, IS_MIN_SFB, -1)
+    er_region = torch.sum(torch.where(region, er, 0.0), dim=-1)
+    er_total = torch.sum(er, dim=-1)
+    cut0 = int(_is_bounds(sample_rate)[IS_MIN_SFB])
+    noise_flat = _carrier_noise_flat_device(spec_l[..., cut0:] + spec_r[..., cut0:])
+    has_region = (
+        region[..., 20]
+        & (er_region > float(np.float32(IS_NEG)) * (er_total + 1e-30))
+        & ~noise_flat
+    )
+    line_mask = region[..., _dc_table("is_band_of", sample_rate, dev)].to(_F32)
+    return pos, region, has_region, line_mask
+
+
+def intensity_q_fixup(q: torch.Tensor, engaged: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """The knife-edge zeroing on the selected quantization (dsp.py:2282-2297):
+    an engaged granule whose quantized extent ends inside band 20 cannot
+    carry both band 20's scalefactor and the tail's position in slot 20, so
+    its band-20 remainder is zeroed. Runs before the entropy layout."""
+    bounds = _is_bounds(sample_rate)
+    z = _last_nonzero_count(q)
+    knife = engaged & (z > int(bounds[20])) & (z <= int(bounds[21]))
+    tail = torch.arange(576, device=q.device) >= int(bounds[20])
+    return torch.where(knife[..., None] & tail, 0, q)
+
+
+def intensity_sfd_device(
+    sfd: dict,
+    quantized: torch.Tensor,
+    pos: torch.Tensor,
+    summed: torch.Tensor,
+    engaged: torch.Tensor,
+    sample_rate: int,
+) -> dict:
+    """The post-walk position slots of engaged long-layout granules (the
+    right channel of emitted frames; dsp.py:2300-2330): every band from the
+    one holding the final quantized extent up takes its position if summed,
+    else the illegal marker 7; the long layout is rebuilt. `quantized`
+    carries intensity_q_fixup."""
+    bounds = torch.from_numpy(_is_bounds(sample_rate)[:21]).to(quantized.device)
+    z = _last_nonzero_count(quantized)
+    b_start = torch.sum(bounds < z[..., None], dim=-1)  # searchsorted, left
+    write = torch.arange(21, device=quantized.device) >= b_start[..., None]
+    sf2 = torch.where(write & engaged[..., None], torch.where(summed, pos, 7), sfd["sf"])
+    return _rebuild_long_sfd_device(sfd, sf2.to(_I32), engaged, sample_rate)
+
+
+def intensity_padded_part2_device(sfd: dict) -> torch.Tensor:
+    """Priced part2 bits with every long slot at least 7 (dsp.py:2333-2342):
+    the post-walk overwrite may grow any slot to the marker, and the emitted
+    bits must never pass the priced ones."""
+    return _finish(_pad_slots(torch.clamp(sfd["sf"], min=7)), 11, 10)["part2"]
+
+
+def intensity_analyze_short_device(
+    spec_l: torch.Tensor, spec_r: torch.Tensor, sample_rate: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-(band, window) intensity analysis of NATURAL-layout pure-short
+    spectrum pairs [..., 576] (dsp.py:2378-2440). Returns (pos [..., 12, 3]
+    int32, region [..., 12, 3] bool, has_region [..., 3] bool per window,
+    line_mask [..., 576] float32, per-window has_region folded in)."""
+    dev = spec_l.device
+    lead = spec_l.shape[:-1]
+    M = _dc_table("is_short_members_t", sample_rate, dev)
+    el = torch.matmul(spec_l * spec_l, M).reshape(*lead, 12, 3)
+    er = torch.matmul(spec_r * spec_r, M).reshape(*lead, 12, 3)
+    num = torch.matmul(spec_l * spec_r, M).reshape(*lead, 12, 3)
+    pos, region = _is_laws(el, er, num, IS_MIN_SFB_SHORT, -2)
+    er_region = torch.sum(torch.where(region, er, 0.0), dim=-2)  # [..., 3]
+    er_total = torch.sum(er, dim=-2)
+    # flatness per window: a granule-level one would be blind on transients
+    cut0 = int(_sb_bounds_for(sample_rate)[IS_MIN_SFB_SHORT])
+    c3 = (spec_l + spec_r)[..., 3 * cut0 :].reshape(*lead, 192 - cut0, 3)
+    noise_flat = _carrier_noise_flat_device(c3.transpose(-1, -2))
+    has_region = (
+        region[..., 11, :]
+        & (er_region > float(np.float32(IS_NEG)) * (er_total + 1e-30))
+        & ~noise_flat
+    )
+    live = (region & has_region[..., None, :]).reshape(*lead, 36)
+    line_mask = live[..., _dc_table("is_slot_of", sample_rate, dev)].to(_F32)
+    return pos, region, has_region, line_mask
+
+
+def _window_extents(q: torch.Tensor) -> torch.Tensor:
+    """Per-window line extents [..., 3] of a NATURAL short quantization."""
+    return _last_nonzero_count(q.reshape(*q.shape[:-1], 192, 3).transpose(-1, -2))
+
+
+def intensity_q_fixup_short(q: torch.Tensor, engaged: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """The per-window knife-edge zeroing of engaged pure-short granules
+    (dsp.py:2443-2465): a window whose extent ends inside band 11 or its
+    tail gets band 11 on zeroed. NATURAL layout."""
+    sbb11 = int(_sb_bounds_for(sample_rate)[11])
+    knife = engaged[..., None] & (_window_extents(q) > sbb11)  # [..., 3]
+    line = torch.arange(192, device=q.device)[:, None] >= sbb11
+    zero = (knife[..., None, :] & line).reshape(*q.shape[:-1], 576)
+    return torch.where(zero, 0, q)
+
+
+def intensity_sfd_short_device(
+    sfd: dict,
+    quantized: torch.Tensor,
+    pos: torch.Tensor,
+    summed: torch.Tensor,
+    engaged: torch.Tensor,
+    sample_rate: int,
+) -> dict:
+    """The per-window post-walk position slots of engaged pure-short granules
+    (dsp.py:2468-2516): in each window every band from the one holding the
+    window's final extent up takes its position if summed, else 7; the
+    short grouping (18, 18) is rebuilt. `quantized` is NATURAL and carries
+    intensity_q_fixup_short. Other granules keep every field."""
+    dev = quantized.device
+    lead = quantized.shape[:-1]
+    sbb = torch.from_numpy(_sb_bounds_for(sample_rate)[:12]).to(dev)
+    b_start = torch.sum(sbb[:, None] < _window_extents(quantized)[..., None, :], dim=-2)  # [..., 3]
+    write = torch.arange(12, device=dev)[:, None] >= b_start[..., None, :]
+    old = sfd["sf_slots"][..., :36].reshape(*lead, 12, 3)
+    slots = torch.where(write & engaged[..., None, None], torch.where(summed, pos, 7), old)
+    sf_slots = _pad_slots(slots.reshape(*lead, 36).to(_I32))
+    new = {"sf_slots": sf_slots, **_finish(sf_slots, 18, 18)}
+    out = dict(sfd)
+    for name, v in new.items():
+        e = engaged.reshape(engaged.shape + (1,) * (v.dim() - engaged.dim()))
+        out[name] = torch.where(e, v, sfd[name])
+    return out
+
+
+def intensity_padded_part2_short_device(sfd: dict) -> torch.Tensor:
+    """Priced part2 with every short (band, window) slot at least 7
+    (dsp.py:2519-2524)."""
+    return _finish(torch.clamp(sfd["sf_slots"][..., :36], min=7), 18, 18)["part2"]

@@ -172,6 +172,46 @@ def test_table_function_copy_agrees(name, call):
         assert _same(call(getattr(ttables, name), sr), call(getattr(jtables, name), sr)), sr
 
 
+def _dc_is_copies():
+    """(port value, original) of each constant distortion control and
+    intensity stereo copy from swiftmp3_tpu/ops/dsp.py and reference.py."""
+    from swiftmp3_tpu.ops import dsp as jdsp
+    from swiftmp3_tpu.ops import reference as jref
+    from swiftmp3_tpu_torch.ops import dsp as tdsp
+
+    pairs = {
+        name: (getattr(tdsp, name), getattr(jref, name))
+        for name in ("IS_CORR", "IS_MIN_SFB", "IS_MIN_SFB_SHORT", "IS_NEG", "IS_SFM", "DC_BUMP_MAX")
+    }
+    for name in ("DC_RATIO", "DC_BUMP", "DC_MASK_OFFSET", "DC_CAPS", "QUARTER_POS"):
+        pairs[name] = (getattr(tdsp, name), getattr(jdsp, "_" + name))
+    pairs["_IS_RATES"] = (tdsp._IS_RATES, jdsp._IS_RATES)
+    for sr in jdsp._IS_RATES:
+        pairs[f"_is_members_ext({sr})"] = (tdsp._is_members_ext(sr), jdsp._IS_MEMBERS_EXT[sr])
+        pairs[f"_IS_BOUNDS[{sr}]"] = (tdsp._is_bounds(sr), jdsp._IS_BOUNDS[sr])
+        pairs[f"_is_members_short({sr})"] = (tdsp._is_members_short(sr), jdsp._IS_MEMBERS_SHORT[sr])
+        pairs[f"_sb_bounds_for({sr})"] = (tdsp._sb_bounds_for(sr), jdsp._IS_SB_BOUNDS[sr])
+        pairs[f"_band_members({sr})"] = (
+            tdsp._band_members(sr), jdsp._BAND_MEMBERS[sr].astype(np.float32)
+        )
+    return pairs
+
+
+DC_IS_COPIES = [
+    "IS_CORR", "IS_MIN_SFB", "IS_MIN_SFB_SHORT", "IS_NEG", "IS_SFM", "DC_BUMP_MAX", "DC_RATIO",
+    "DC_BUMP", "DC_MASK_OFFSET", "DC_CAPS", "QUARTER_POS", "_IS_RATES",
+    *(f"{f}({sr})" for sr in (44100, 48000, 32000)
+      for f in ("_is_members_ext", "_is_members_short", "_sb_bounds_for", "_band_members")),
+    *(f"_IS_BOUNDS[{sr}]" for sr in (44100, 48000, 32000)),
+]
+
+
+@pytest.mark.parametrize("name", DC_IS_COPIES)
+def test_dc_is_constant_copies_equal_the_originals(name):
+    got, want = _dc_is_copies()[name]
+    assert _same(got, want)
+
+
 VERBATIM = [
     "options.py",
     "streaming.py",

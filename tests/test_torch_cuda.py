@@ -25,10 +25,13 @@ from swiftmp3_tpu_torch.parallel.batch import encode_batch
 
 from .torch_inputs import (
     COMPAT_FIXTURES,
+    DC_IS_OPTIONS,
     HQ_FLAG_OPTIONS,
     HQ_OPTIONS,
     STRICT_FIXTURES,
     STRICT_OPTIONS,
+    dc_is_options,
+    dc_is_streams,
     fixture_path,
     hq_pack_input,
     knife_edge_sweep_input,
@@ -41,12 +44,13 @@ from .torch_inputs import (
 pytestmark = pytest.mark.cuda
 
 # from the sixth: the strict and the hq paths' slots a frame and caps, stereo
-# and mono; the last three the hq flags' (96 kbps joint stereo and mono,
-# demand VBR's band up to 172 kbps)
+# and mono (hq mono 128 kbps also distortion control's); then the hq flags'
+# (96 kbps joint stereo and mono, demand VBR's band up to 172 kbps), and
+# intensity stereo's (hq joint stereo 32 kbps)
 PACK_SHAPES = [
     (16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160), (2048, 1152, 894),
     (2048, 1872, 894), (2048, 936, 910), (2048, 4176, 894), (2048, 2088, 910),
-    (2048, 4176, 790), (2048, 2088, 806), (2048, 2088, 1014),
+    (2048, 4176, 790), (2048, 2088, 806), (2048, 2088, 1014), (2048, 4176, 582),
 ]
 # frames whose bytes may differ between the card and the CPU: a float ULP in
 # the matmul or reduction order can move a quantization knife edge
@@ -373,3 +377,48 @@ def test_mono_hq_on_the_card_with_the_cpu_filterbank_matches_the_jax_bytes(
         s = new_session(o)
         assert s.encode(pcm) + s.flush() == ref
         monkeypatch.undo()
+
+
+@pytest.mark.parametrize("preset", list(DC_IS_OPTIONS))
+def test_pack_kernel_matches_plain_on_the_dc_is_paths(cuda_device, preset):
+    """K2 on the pack input of distortion control and intensity stereo
+    (their own P and cap), and on the same slots eight times over, past the
+    cap (a 32 kbps frame holds few bits)."""
+    chunks, nbits, cap = hq_pack_input(cuda_device, B=4, T=4, preset=preset)
+    for c, n in ((chunks, nbits), (torch.cat([chunks] * 8, 1), torch.cat([nbits] * 8, 1))):
+        c, n = c.contiguous(), n.contiguous()
+        by, tot = kernels.pack(c, n, cap)
+        pby, ptot = kernels.pack_plain(c, n, cap)
+        assert torch.equal(by, pby) and torch.equal(tot, ptot)
+    assert (ptot > 8 * cap).any()
+
+
+@pytest.mark.parametrize("preset", list(DC_IS_OPTIONS))
+def test_dc_is_on_the_card_with_the_cpu_filterbank_matches_the_jax_bytes(
+    cuda_device, preset, monkeypatch
+):
+    """Each distortion-control and intensity configuration on the card keeps
+    the JAX backend's frame structure on its own filterbank and MDCT, and
+    with the port's CPU filterbank and MDCT in their place (every other op
+    on the card) gives the JAX backend's bytes exactly."""
+    from .torch_inputs import jax_path
+
+    o = dc_is_options(preset, MP3EncoderOptions)
+    stem, pcm = next(iter(dc_is_streams(preset).items()))
+    with open(jax_path(f"{preset}_{stem}"), "rb") as fh:
+        ref = fh.read()
+    s = new_session(o)
+    _flips(s.encode(pcm) + s.flush(), ref)  # the structure
+    pm, md = dsp.polyphase_chunk_matmul, dsp.mdct_chunk
+    monkeypatch.setattr(
+        dsp, "polyphase_chunk_matmul",
+        lambda h, p: tuple(x.to(h.device) for x in pm(h.cpu(), p.cpu())),
+    )
+    monkeypatch.setattr(
+        dsp, "mdct_chunk",
+        lambda S, ov, bt, *a, **k: tuple(
+            x.to(S.device) for x in md(S.cpu(), ov.cpu(), bt.cpu(), *a, **k)
+        ),
+    )
+    s = new_session(o)
+    assert s.encode(pcm) + s.flush() == ref

@@ -26,6 +26,7 @@ Regenerate the compat and strict golden streams with
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 
@@ -112,6 +113,9 @@ def test_golden_inputs_cover_the_frozen_files():
             want += [ti.golden_path(stem, preset), ti.jax_path(f"{preset}_{stem}")]
     want += [ti.checkpoint_path(side, ti.DEPTH_CHECKPOINT[1]) for side in ("jax", "port")]
     want += [ti.jax_path("corpus_file0"), ti.jax_path("cli")]
+    for preset in ti.DC_IS_OPTIONS:
+        for stem in ti.dc_is_streams(preset):
+            want += [ti.golden_path(stem, preset), ti.jax_path(f"{preset}_{stem}")]
     assert frozen == sorted(os.path.basename(p) for p in want)
 
 
@@ -196,6 +200,42 @@ def test_frozen_hq_flag_golden_stream_is_the_golden_encoders(preset):
     """One stream of each configuration (13 or 17 frames)."""
     stem, pcm = next(iter(ti.hq_flag_streams(preset).items()))
     s = EncoderSession(_flag_options(preset), backend="numpy")
+    with open(ti.golden_path(stem, preset), "rb") as fh:
+        assert fh.read() == s.encode(pcm) + s.flush()
+
+
+def test_dc_is_options_and_inputs_are_the_telemetry_configurations():
+    """hq_dc_mono128 and hq_is_32k are tests/test_ulp_telemetry.py's, on its
+    corpus as it feeds them (mono folded for distortion control); the depth
+    knobs' row is hq_dc_mono128 at 3 proportional passes; the strict row is
+    the spec_strict preset at the same rate as hq_is_32k."""
+    from .test_ulp_telemetry import _CONFIGS, _mono
+
+    configs = {name: (make, prep) for name, _, make, prep in _CONFIGS}
+    opts = {p: ti.dc_is_options(p, MP3EncoderOptions, Mode) for p in ti.DC_IS_OPTIONS}
+    corpus = _corpus_stereo()
+    for preset in ("hq_dc_mono128", "hq_is_32k"):
+        make, prep = configs[preset]
+        assert opts[preset] == make()
+        for k, pcm in ti.dc_is_streams(preset).items():
+            want = corpus[k[len("corpus_"):]]
+            assert np.array_equal(pcm, want if prep is None else prep(want))
+    assert configs["hq_dc_mono128"][1] is _mono and configs["hq_is_32k"][1] is None
+    assert opts["hq_dc3p_mono128"] == dataclasses.replace(
+        opts["hq_dc_mono128"], dc_passes=3, dc_proportional=True
+    )
+    assert opts["strict_is_32k"] == MP3EncoderOptions.spec_strict(
+        mode=Mode.JOINT_STEREO, bitrate_kbps=32, sample_rate=44100, intensity_stereo=True
+    )
+    assert all(o.distortion_control_active for p, o in opts.items() if "_dc" in p)
+    assert all(o.intensity_stereo_active for p, o in opts.items() if "_is_" in p)
+
+
+@pytest.mark.parametrize("preset", list(ti.DC_IS_OPTIONS))
+def test_frozen_dc_is_golden_stream_is_the_golden_encoders(preset):
+    """One stream of each configuration (12 or 13 frames)."""
+    stem, pcm = next(iter(ti.dc_is_streams(preset).items()))
+    s = EncoderSession(ti.dc_is_options(preset, MP3EncoderOptions, Mode), backend="numpy")
     with open(ti.golden_path(stem, preset), "rb") as fh:
         assert fh.read() == s.encode(pcm) + s.flush()
 

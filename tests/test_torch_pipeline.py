@@ -263,9 +263,6 @@ def test_carry_from_jax_conversions():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(distortion_control=True, mode="mono", hq=True, item=9),
-        dict(intensity_stereo=True, mode="joint_stereo", bitrate_kbps=32, lowpass_hz=None,
-             hq=True, item=10),
         dict(free_format=True, bitrate_kbps=100, item=11),
         dict(sample_rate=22050, iso_quantization=True, reservoir_mode="aligned", item=11),
     ],
@@ -279,6 +276,30 @@ def test_unsupported_options_raise(kw):
         new_session(o, CPU)
     with pytest.raises(NotImplementedError):
         BatchEncoder(o, 2, 4, CPU)
+
+
+# The flags ROADMAP Queue 1 items 9 and 10 brought, at the configurations
+# where test_unsupported_options_raise held them to their items before:
+# distortion control in hq mono 128 kbps, intensity stereo in hq joint
+# stereo 32 kbps with the lowpass off.
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(distortion_control=True, mode="mono"),
+        dict(intensity_stereo=True, mode="joint_stereo", bitrate_kbps=32, lowpass_hz=None),
+    ],
+    ids=["distortion_control", "intensity_stereo"],
+)
+def test_distortion_and_intensity_build_and_encode(kw):
+    """Both build and encode frames through new_session and BatchEncoder on
+    the CPU, to the same bytes."""
+    o = MP3EncoderOptions.hq(**kw)
+    assert o.distortion_control_active or o.intensity_stereo_active
+    pcm = make_signal("mix", 0.1, 44100, o.channels, 6)
+    s = new_session(o, CPU)
+    data = s.encode(pcm) + s.flush()
+    assert len(parse_frames(data)) >= 4
+    assert encode_batch(o, [pcm], CPU, frames_per_step=4) == [data]  # a BatchEncoder
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -313,11 +334,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_hq_preset_raises():
     """The hq preset runs at 128 kbps and, with its rate-derived adaptive
-    lowpass, at 96 kbps; with distortion control active it raises item 9."""
+    lowpass, at 96 kbps; at an LSF rate it raises item 11."""
     tpipe.make_chunk_fn(MP3EncoderOptions.hq())
     tpipe.make_chunk_fn(MP3EncoderOptions.hq(bitrate_kbps=96))
-    with pytest.raises(NotImplementedError, match="distortion_control .* item 9"):
-        tpipe.make_chunk_fn(MP3EncoderOptions.hq(mode="mono", distortion_control=True))
+    with pytest.raises(NotImplementedError, match="LSF sample rates .* item 11"):
+        tpipe.make_chunk_fn(MP3EncoderOptions.hq(mode="mono", sample_rate=22050, bitrate_kbps=64))
 
 
 def test_import_loads_no_jax():

@@ -5,8 +5,8 @@ hold it to.
 
 Run once on the CPU, from the repository root; no test runs it (it compiles
 JAX hq chunk programs, which the fast tier never does). The parts are hq,
-strict, checkpoint, flags, depth_checkpoint, corpus and cli (all when none
-is named). It writes under tests/fixtures/torch/:
+strict, checkpoint, flags, depth_checkpoint, corpus, cli, dc and is (all
+when none is named). It writes under tests/fixtures/torch/:
 
 - golden_<preset>_<stem>.mp3: the golden numpy backend's streams under each
   hq configuration (tests/torch_inputs.HQ_OPTIONS) for the hq fixture rows
@@ -25,7 +25,10 @@ is named). It writes under tests/fixtures/torch/:
 - jax_corpus_file0.mp3: the JAX package's encode_corpus file of the first
   of torch_inputs.corpus_streams();
 - jax_cli.mp3: the JAX command line's output for torch_inputs.CLI_ARGS on a
-  WAV of torch_inputs.cli_pcm().
+  WAV of torch_inputs.cli_pcm();
+- golden_<preset>_<stem>.mp3 and jax_<preset>_<stem>.mp3 for each preset of
+  torch_inputs.DC_IS_OPTIONS on torch_inputs.dc_is_streams(preset): part dc
+  (distortion control), part is (intensity stereo).
 
 It prints, for every frozen JAX stream, how many frames the port's CPU
 session encodes differently (the port's tests hold it to these files).
@@ -55,8 +58,10 @@ from .util import parse_frames
 
 
 def hq_options(preset: str):
-    """(port options, JAX options) of an hq preset of HQ_OPTIONS or
-    HQ_FLAG_OPTIONS."""
+    """(port options, JAX options) of a preset of HQ_OPTIONS, HQ_FLAG_OPTIONS
+    (hq) or DC_IS_OPTIONS."""
+    if preset in ti.DC_IS_OPTIONS:
+        return ti.dc_is_options(preset, MP3EncoderOptions), ti.dc_is_options(preset, JaxOptions, Mode)
     kw = {**ti.HQ_OPTIONS, **ti.HQ_FLAG_OPTIONS}[preset]
     return MP3EncoderOptions.hq(**kw), JaxOptions.hq(**dict(kw, mode=Mode(kw["mode"])))
 
@@ -161,6 +166,8 @@ PARTS = {
     ),
     "corpus": freeze_corpus,
     "cli": freeze_cli,
+    "dc": lambda: freeze_presets(["hq_dc_mono128", "hq_dc3p_mono128"], ti.dc_is_streams),
+    "is": lambda: freeze_presets(["hq_is_32k", "strict_is_32k"], ti.dc_is_streams),
 }
 
 

@@ -108,16 +108,19 @@ def hq_pack_input(
     granule, so P = 4176 in stereo and 2088 in mono), and the cap, for B
     streams of T frames of loud correlated noise with attacks on `device`
     (each frame's lookahead the next frame's first granule), under the hq
-    configuration `preset` of HQ_OPTIONS or HQ_FLAG_OPTIONS (its mode
-    replaced by `mode`, if given)."""
+    configuration `preset` of HQ_OPTIONS, HQ_FLAG_OPTIONS or DC_IS_OPTIONS
+    (its mode replaced by `mode`, if given)."""
     import torch
 
     from swiftmp3_tpu_torch.models import pipeline
     from swiftmp3_tpu_torch.ops import kernels
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
 
-    kw = {**HQ_OPTIONS, **HQ_FLAG_OPTIONS}[preset]
-    o = MP3EncoderOptions.hq(**dict(kw, mode=mode or kw["mode"]))
+    if preset in DC_IS_OPTIONS:
+        factory, kw = DC_IS_OPTIONS[preset]
+    else:
+        factory, kw = "hq", {**HQ_OPTIONS, **HQ_FLAG_OPTIONS}[preset]
+    o = getattr(MP3EncoderOptions, factory)(**dict(kw, mode=mode or kw["mode"]))
     n = 1152 * o.channels
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, (T + 1) * n)).astype(np.float32) * 0.3
@@ -465,6 +468,51 @@ def hq_flag_streams(preset: str) -> dict:
     return {f"corpus_{k}": corpus_mono(v) if mono else v for k, v in corpus_stereo().items()}
 
 
+# Distortion control and intensity stereo (ROADMAP Queue 1 items 9 and 10):
+# {preset: (factory, kwargs)}, the options MP3EncoderOptions.<factory>(**kwargs)
+# builds. The telemetry suite's hq_dc_mono128 and hq_is_32k
+# (tests/test_ulp_telemetry.py), distortion control at its depth knobs, and
+# the spec_strict preset's intensity stereo, which gates on the raw transient
+# verdicts (no window sequencing).
+DC_IS_OPTIONS = {
+    "hq_dc_mono128": ("hq", dict(mode="mono", bitrate_kbps=128, sample_rate=44100,
+                                 distortion_control=True)),
+    "hq_dc3p_mono128": ("hq", dict(mode="mono", bitrate_kbps=128, sample_rate=44100,
+                                   distortion_control=True, dc_passes=3, dc_proportional=True)),
+    "hq_is_32k": ("hq", dict(mode="joint_stereo", bitrate_kbps=32, sample_rate=44100,
+                             intensity_stereo=True)),
+    "strict_is_32k": ("spec_strict", dict(mode="joint_stereo", bitrate_kbps=32, sample_rate=44100,
+                                          intensity_stereo=True)),
+}
+# The corpus classes each DC_IS_OPTIONS preset's frozen rows cover: all six
+# for the two telemetry configurations (their golden corpus), stationary and
+# transient classes for the others.
+DC_IS_CLASSES = {
+    "hq_dc_mono128": ("tonal", "noise", "burst", "speech", "decorr", "panned"),
+    "hq_dc3p_mono128": ("speech", "burst"),
+    "hq_is_32k": ("tonal", "noise", "burst", "speech", "decorr", "panned"),
+    "strict_is_32k": ("panned", "burst"),
+}
+
+
+def dc_is_options(preset: str, options_cls, mode_cls=str):
+    """DC_IS_OPTIONS[preset] built by either package's MP3EncoderOptions
+    (mode_cls: that package's Mode, or str for the port)."""
+    factory, kw = DC_IS_OPTIONS[preset]
+    return getattr(options_cls, factory)(**dict(kw, mode=mode_cls(kw["mode"])))
+
+
+def dc_is_streams(preset: str) -> dict:
+    """The inputs whose streams under DC_IS_OPTIONS[preset] are frozen under
+    tests/fixtures/torch/ (jax_<preset>_<stem>.mp3, golden_<preset>_<stem>.mp3):
+    {stem: PCM}, the classes of DC_IS_CLASSES from the telemetry corpus, mono
+    as the telemetry suite folds it for mono presets."""
+    mono = DC_IS_OPTIONS[preset][1]["mode"] == "mono"
+    corpus = corpus_stereo()
+    return {f"corpus_{k}": corpus_mono(corpus[k]) if mono else corpus[k]
+            for k in DC_IS_CLASSES[preset]}
+
+
 # encode_corpus's frozen file: the JAX package's first complete file (ID3 tag,
 # Xing header, frames) of CORPUS_STREAMS under CORPUS_OPTIONS with per-stream
 # tags (title, artist), frames_per_step 4.
@@ -601,6 +649,24 @@ def bench_audio(rng, B: int, T: int, channels: int, sample_rate: int) -> np.ndar
     sig = (base[None, :] * rng.uniform(0.5, 1.0, (B, 1)) + ar).astype(np.float32)
     mono = (np.clip(sig, -0.99, 0.99) * 32767).astype(np.int16)
     return np.repeat(mono[..., None], channels, axis=-1).reshape(B, T, 1152 * channels)
+
+
+def panned_audio(rng, B: int, T: int, sample_rate: int = 44100) -> np.ndarray:
+    """Panned two-tone stereo, int16 interleaved [B, T, 2304]: per stream a
+    tone of 200-600 Hz and one of 1.8-4 kHz (above intensity stereo's lowest
+    band) over quiet noise, the right channel the left at a gain of 0.1-0.6;
+    the content intensity stereo codes (the telemetry corpus's panned
+    class, at full width)."""
+    t = np.arange(T * 1152, dtype=np.float32) * np.float32(2 * np.pi / sample_rate)
+    f1 = rng.uniform(200, 600, (B, 1)).astype(np.float32)
+    f2 = rng.uniform(1800, 4000, (B, 1)).astype(np.float32)
+    left = np.sin(f1 * t) * np.float32(0.35 * 32767)
+    left += np.sin(f2 * t) * np.float32(0.12 * 32767)
+    left += rng.standard_normal((B, T * 1152), dtype=np.float32) * np.float32(0.002 * 32767)
+    pcm = np.empty((B, T * 1152, 2), dtype=np.int16)
+    pcm[..., 0] = left
+    pcm[..., 1] = left * rng.uniform(0.1, 0.6, (B, 1)).astype(np.float32)
+    return pcm.reshape(B, T, 1152 * 2)
 
 
 def main_path_streams() -> list[np.ndarray]:

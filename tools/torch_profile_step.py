@@ -4,12 +4,17 @@
     python3 tools/torch_profile_step.py            # the compat main path
     python3 tools/torch_profile_step.py --strict   # the spec_strict path
     python3 tools/torch_profile_step.py --hq       # the hq path
+    python3 tools/torch_profile_step.py --dc       # hq mono 128 kbps, distortion control
+    python3 tools/torch_profile_step.py --is       # hq joint stereo 32 kbps, intensity stereo
 
 Runs the port's BatchEncoder at the main path's shape (256 streams x 128
 frames, bench audio; 128 kbps CBR stereo 44.1 kHz, or with --strict
 MP3EncoderOptions.spec_strict(joint stereo, 128 kbps, 44.1 kHz), or with
 --hq MP3EncoderOptions.hq(joint stereo, 128 kbps, 44.1 kHz), each frame's
-lookahead granule built as bench.py builds it) for two warm-up steps, then:
+lookahead granule built as bench.py builds it; with --dc the hq preset's
+distortion control in mono at 128 kbps on the bench audio's left channel,
+with --is its intensity stereo in joint stereo at 32 kbps on panned two-tone
+audio, tests/torch_inputs.DC_IS_OPTIONS) for two warm-up steps, then:
 
   1. phase wall times of one step, with a device synchronise at each phase
      boundary. Compat: phase 1 up to and including the rate sweep, the
@@ -18,7 +23,10 @@ lookahead granule built as bench.py builds it) for two warm-up steps, then:
      (hq) the window sequencing, the MDCT, the scalefactors and gains, the
      strict sweep (and the share of it inside the entropy layout), the loop
      over T, finalize, the second loop and the chunks, the pack, and the
-     output assembly;
+     output assembly; --dc splits each sweep and each distortion-control
+     pass out (the probe selection, quantization, bumps and rebuilt
+     scalefactors before its sweep), --is the intensity analysis and
+     transform and the post-walk position slots;
   2. (strict, hq) CUDA-event device times of the strict sweep and of one
      entropy layout on that step's own inputs;
   3. torch.profiler over one more step: device time by kernel, the number
@@ -111,6 +119,7 @@ def _instrument(marks: dict, captured: dict, strict: bool):
     strict sweep's entropy layouts add their synchronised time to
     marks["layout_s"]. The first call's arguments land in `captured`.
     Returns a function that undoes the wrapping."""
+    from swiftmp3_tpu_torch.models import pipeline
     from swiftmp3_tpu_torch.ops import dsp, kernels
 
     if strict:
@@ -143,6 +152,8 @@ def _instrument(marks: dict, captured: dict, strict: bool):
                 marks[after] = time.perf_counter()
             if name == "strict_layout_device" and "sweep_end" not in marks:
                 marks["layout_s"] = marks.get("layout_s", 0.0) + time.perf_counter() - t
+            if name in ("rate_loop_precompute_strict", "distortion_pass"):
+                marks.setdefault(name, []).append(time.perf_counter() - t)
             return out
 
         setattr(mod, name, wrapper)
@@ -152,6 +163,9 @@ def _instrument(marks: dict, captured: dict, strict: bool):
     if strict:
         wrap(dsp, "strict_layout_device", None, None)
         wrap(dsp, "onset_wants_chunk", "seq_start", None)
+        wrap(pipeline, "distortion_pass", None, None)
+        wrap(pipeline, "intensity_stage", "is_start", "is_end")
+        wrap(pipeline, "intensity_post_walk_sfd", "post_start", "post_end")
 
     def undo():
         for mod, name, fn in saved:
@@ -165,9 +179,10 @@ def main(argv=None) -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 2
     args = sys.argv[1:] if argv is None else argv
-    hq = "--hq" in args
+    dc, intensity = "--dc" in args, "--is" in args
+    hq = "--hq" in args or dc or intensity
     strict = hq or "--strict" in args
-    name = "hq" if hq else "strict" if strict else "compat"
+    name = "hq dc" if dc else "hq is" if intensity else "hq" if hq else "strict" if strict else "compat"
 
     from swiftmp3_tpu_torch.ops import dsp
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
@@ -179,6 +194,8 @@ def main(argv=None) -> int:
         MAIN_OPTIONS,
         STRICT_OPTIONS,
         bench_audio,
+        dc_is_options,
+        panned_audio,
         step_lookahead,
     )
 
@@ -186,20 +203,29 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    if hq:
+    if dc:
+        opts = dc_is_options("hq_dc_mono128", MP3EncoderOptions)
+    elif intensity:
+        opts = dc_is_options("hq_is_32k", MP3EncoderOptions)
+    elif hq:
         opts = MP3EncoderOptions.hq(**HQ_OPTIONS["hq_joint"])
     elif strict:
         opts = MP3EncoderOptions.spec_strict(**STRICT_OPTIONS)
     else:
         opts = MP3EncoderOptions(**MAIN_OPTIONS)
     rng = np.random.default_rng(0)
-    audio = [bench_audio(rng, B, T, 2, opts.sample_rate) for _ in range(4)]
+    if intensity:
+        audio = [panned_audio(rng, B, T, opts.sample_rate) for _ in range(4)]
+    else:
+        audio = [bench_audio(rng, B, T, 2, opts.sample_rate) for _ in range(4)]
+    if opts.channels == 1:  # the bench audio is dual mono
+        audio = [a[..., 0::2].copy() for a in audio]
     final = np.zeros((B, T), bool)
     valid = np.ones((B, T), bool)
     enc = BatchEncoder(opts, B, T)
 
     def step(k):
-        la = step_lookahead(audio, k, 2) if hq else None
+        la = step_lookahead(audio, k, opts.channels) if hq else None
         return enc.step(audio[k], final, valid, la)
 
     try:
@@ -222,6 +248,7 @@ def main(argv=None) -> int:
         marks["t0"], marks["t1"] = t0, t1
         if strict:
             sweep = ms("sweep_start", "sweep_end")
+            first = 1e3 * marks["rate_loop_precompute_strict"][0]  # the first sweep
             layout = marks["layout_s"] * 1e3
             front = (
                 f"ingest+filterbank {ms('t0', 'seq_start'):.2f} ms, window sequencing "
@@ -231,13 +258,24 @@ def main(argv=None) -> int:
             )
             print(f"[phases] {name} B={B} T={T} {card}: {front}, MDCT "
                   f"{ms('mdct_start', 'mdct_end'):.2f} ms, "
-                  f"scalefactors+gains {ms('mdct_end', 'sweep_start'):.2f} ms, strict sweep "
-                  f"{sweep:.2f} ms (entropy layout {layout:.2f} ms of it, "
-                  f"{100 * layout / sweep:.1f}%), loop over T {ms('sweep_end', 'loop_end'):.2f} ms, "
+                  f"scalefactors+gains {ms('mdct_end', 'sweep_start'):.2f} ms, strict sweep(s) "
+                  f"{sweep:.2f} ms (the first {first:.2f} ms, its entropy layouts {layout:.2f} ms, "
+                  f"{100 * layout / first:.1f}%), loop over T {ms('sweep_end', 'loop_end'):.2f} ms, "
                   f"finalize {ms('loop_end', 'finalize_end'):.2f} ms, second loop+chunks "
                   f"{ms('finalize_end', 'pack_start'):.2f} ms, pack {ms('pack_start', 'pack_end'):.2f} ms, "
                   f"output+carry+D2H {ms('pack_end', 't1'):.2f} ms, step {ms('t0', 't1'):.2f} ms "
                   f"(synchronised)", flush=True)
+            if dc:
+                sweeps = marks["rate_loop_precompute_strict"]
+                passes = marks["distortion_pass"]
+                print(f"[dc] {opts.dc_passes} pass(es): sweeps {['%.2f' % (1e3 * x) for x in sweeps]} "
+                      f"ms, probe+bumps+scalefactors {['%.2f' % (1e3 * x) for x in passes]} ms; one "
+                      f"pass (probe+bumps+scalefactors+sweep) "
+                      f"{1e3 * (passes[0] + sweeps[1]):.2f} ms, {card}", flush=True)
+            if intensity:
+                print(f"[is] intensity analysis+transform {ms('is_start', 'is_end'):.2f} ms, "
+                      f"post-walk position slots {ms('post_start', 'post_end'):.2f} ms, {card}",
+                      flush=True)
             # 2. device times of the sweep and of one layout on this step's inputs
             a, kw = captured["rate_loop_precompute_strict"]
             sweep_ms = cuda_ms(lambda: dsp.rate_loop_precompute_strict(*a, **kw), reps=3, warmup=1)
