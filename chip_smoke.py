@@ -16,9 +16,12 @@ reference streams are committed files). Phases:
      the reference tests' shapes, and against the port's host Huffman packer;
   3b. K3 polyphase filterbank: kernel vs plain version and vs the folded
      matmul within 2e-5 (x identical) at the main path's shape (512 rows,
-     T = 128) and at session shapes (T = 8, T = 3); then the path that runs
-     K3, the filterbank stage of tools/torch_profile_step.py, with launch
-     counts read around it, and K3's time as a share of its bound;
+     T = 128), at session shapes (T = 8, T = 3) and on an LSF chunk of an
+     odd number of frames (512 rows x 127 frames of 576 samples, 2286
+     windows: the folded matmul pads them to its 4-a-row packing); then
+     the path that runs K3, the filterbank stage of
+     tools/torch_profile_step.py, with launch counts read around it, and
+     K3's time as a share of its bound;
   4. the main path: BatchEncoder at 256 streams x 128 frames, 128 kbps CBR
      stereo 44.1 kHz, 2 steps of unique int16 audio rendered to bytes, with
      launch counts read around it; every stream's frame walk is checked;
@@ -74,6 +77,17 @@ reference streams are committed files). Phases:
      steps, counting the frames that emit intensity (mode_extension 0b01;
      there must be some); then K2 bit-exact on the IS path's pack input
      (P = 4176, cap 582);
+  4j. LSF sample rates and free format ([lsf strict], [lsf hq], [lsf iso],
+     [free format]; tests/torch_inputs.LSF_PATHS): BatchEncoder at
+     spec_strict(joint stereo, 64 kbps, 22.05 kHz), hq(mono, 48 kbps, 16
+     kHz) with each frame's lookahead granule, and the non-strict program at
+     22.05 kHz under the ISO law, each 256 streams x 128 frames of 576
+     samples, 2 steps, and free format (spec_strict mono 150 kbps with
+     linbits at 44.1 kHz) one step at the same width; every frame walk
+     checked (MPEG-2 headers and 576 samples a frame; free format: bitrate
+     index 0, 489 or 490 bytes); then K1 bit-exact on the lsf iso path's
+     sweep input (65 536 granules, ISO law) and K2 bit-exact on each path's
+     pack input (P = 936, 1044, 576, 2088) and past the cap;
   5. parity: the 8 compat fixture rows through new_session(o) against the
      JAX backend's committed streams (tests/fixtures/*.tpu.mp3), and 2
      main-path streams and the ULP-telemetry corpus against the golden numpy
@@ -88,9 +102,14 @@ reference streams are committed files). Phases:
      configuration's rows as one batch: the card's own bytes within a
      ceiling per configuration, exact with the CPU filterbank and MDCT, the
      telemetry corpus against the golden encoder's within the telemetry
-     suite's ceilings (42/78, 19/78);
-  6. a `kernels` JSON line (K1 and K2 as the compat main path and the
-     serving pool launched them, K3 as the filterbank stage did), the card
+     suite's ceilings (42/78, 19/78); the LSF and free-format rows ([parity
+     lsf]), each as a card batch of 7-frame steps against the JAX package's
+     frozen batch at 7 frames a step and as a card session against the JAX
+     backend's frozen session, within a ceiling per row, and exact with the
+     CPU filterbank and MDCT;
+  6. a `kernels` JSON line (K1 and K2 as the compat main path, the serving
+     pool and the LSF and free-format paths launched them, K3 as the
+     filterbank stage did), the card
      line, and the result line. Each phase's wall time is printed
      ([time]).
 
@@ -174,6 +193,22 @@ DC_IS_JAX_FLIP_CEILING = {
 # the telemetry corpus against the golden encoder's (78 frames): the JAX
 # backend's ceilings in tests/test_ulp_telemetry.py (it measured 34/78, 11/78)
 DC_IS_GOLDEN_FLIP_CEILING = {"hq_dc_mono128": 42, "hq_is_32k": 19}
+# The LSF and free-format rows (tests/torch_inputs.LSF_ROWS, FF_ROWS) on the
+# card's own filterbank and MDCT against the JAX package's frozen bytes: the
+# frames a card batch or a card session of a row differed in (H100 80GB
+# HBM3, 700 W: 0 in every row both ways) under the telemetry suite's rule
+# max(2x, +2). With the CPU filterbank and MDCT they must be exact (the CPU
+# session and batch are on every row).
+LSF_JAX_FLIP_CEILING = {
+    "lsf_strict_joint64_22k_burst": 2,
+    "lsf_hq_mono48_16k_content": 2,
+    "lsf_hq_joint80_24k_content": 2,
+    "lsf_strict_mono48_8k_mixed": 2,
+    "lsf_strict_noshort_joint48_22k_mixed": 2,
+    "lsf_strict_vbr_q3_22k_content": 2,
+    "lsf_iso_stereo64_22k_burst": 2,
+    "ff_strict_mono150_44k_noise": 2,
+}
 
 STEPS_MAIN = 2
 STEPS_STRICT = 2
@@ -181,6 +216,7 @@ STEPS_HQ = 2  # joint stereo; stereo takes one
 STEPS_HQ96 = 2
 STEPS_DC = 2  # and one step at dc_passes=3, dc_proportional=True
 STEPS_IS = 2
+STEPS_LSF = 2  # each LSF path; free format takes one
 # bench.py's serving cell (bench.py:207-226)
 SERVE_LANES, SERVE_FRAMES, SERVE_STEPS = 64, 32, 10
 K3_TOLERANCE = 2e-5  # tests/test_pallas.py, the JAX package's own for K3
@@ -196,12 +232,13 @@ def _bound(nbytes: float, lane_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _frames(data: bytes) -> list[bytes]:
-    """The frames of an MPEG-1 Layer III stream; raises on a bad sync word,
-    a gap or trailing bytes."""
-    from tests.util import parse_frames
+def _frames(data: bytes, free_kbps: int = None) -> list[bytes]:
+    """The frames of a Layer III stream (MPEG-1, 2 or 2.5; free-format
+    frames sized by free_kbps); raises on a bad sync word, a gap or trailing
+    bytes."""
+    from tests.torch_inputs import walk_frames
 
-    return [data[f.offset : f.offset + f.size] for f in parse_frames(data)]
+    return [data[f["offset"] : f["offset"] + f["size"]] for f in walk_frames(data, free_kbps)]
 
 
 def _split_id3(data: bytes) -> tuple[bytes, bytes]:
@@ -309,16 +346,36 @@ def _check_sweep(sweep_input, what: str, card: str) -> None:
           f"{100 * bound_ms / ms:.1f}% of its bound", flush=True)
 
 
-def _parsed(data: bytes):
-    from tests.util import parse_frames
+def _check_polyphase(hist, pcm, what: str) -> float:
+    """K3 against its plain version and the folded matmul within
+    K3_TOLERANCE, x identical; returns the error against the plain
+    version."""
+    import torch
 
-    return parse_frames(data)
+    from swiftmp3_tpu_torch.ops import dsp, kernels
+
+    hist, pcm = hist.contiguous(), pcm.contiguous()
+    rows = hist.shape[0] * hist.shape[1]
+    S, x = kernels.polyphase_chunk(hist, pcm)
+    S_p, x_p = kernels.polyphase_chunk_plain(hist, pcm)
+    S_m, _ = dsp.polyphase_chunk_matmul(hist, pcm)
+    e_p = float((S - S_p).abs().max())
+    e_m = float((S - S_m).abs().max())
+    if not (e_p <= K3_TOLERANCE and e_m <= K3_TOLERANCE and torch.equal(x, x_p)):
+        raise AssertionError(
+            f"polyphase kernel at {rows} rows x {what}: max err {e_p:.3g} vs plain, "
+            f"{e_m:.3g} vs the folded matmul (tolerance {K3_TOLERANCE}), "
+            f"x equal {torch.equal(x, x_p)}"
+        )
+    print(f"[K3] polyphase {rows} rows x {what} ({pcm.shape[-1] // 32} windows): max err "
+          f"{e_p:.3g} vs plain, {e_m:.3g} vs folded matmul, x identical", flush=True)
+    return e_p
 
 
-def _compare_streams(got: bytes, ref: bytes, what: str) -> int:
+def _compare_streams(got: bytes, ref: bytes, what: str, free_kbps: int = None) -> int:
     """Assert structural equality (frame count, every header and size);
     return the number of frames whose bytes differ."""
-    fg, fr = _frames(got), _frames(ref)
+    fg, fr = _frames(got, free_kbps), _frames(ref, free_kbps)
     if [(f[:4], len(f)) for f in fg] != [(f[:4], len(f)) for f in fr]:
         raise AssertionError(f"{what}: frame structure differs ({len(fg)} vs {len(fr)} frames)")
     return sum(a != b for a, b in zip(fg, fr))
@@ -346,23 +403,36 @@ def _sweep_inputs(chunk, options, device):
 
 def _check_walks(streams, n_frames: int, options=None) -> None:
     """Every stream: n_frames frames of a valid walk, each of the CBR frame
-    size of `options` or one byte more (417 or 418 at 128 kbps, 44.1 kHz);
-    any size under VBR."""
-    sizes = {417, 418}
+    size of `options` or one byte more (417 or 418 at 128 kbps, 44.1 kHz),
+    any size under VBR; each header of `options`' sample rate and frame
+    length (an MPEG-2 or 2.5 header and 576 samples at LSF rates) and, in
+    free format, bitrate index 0."""
+    from tests.torch_inputs import walk_frames
+
+    sizes, rate, samples, free = {417, 418}, 44100, 1152, None
     if options is not None:
-        base = 144 * options.bitrate_kbps * 1000 // options.sample_rate
+        slots = 72 if options.lsf else 144
+        base = slots * options.bitrate_kbps * 1000 // options.sample_rate
         sizes = None if options.vbr else {base, base + 1}
+        rate, samples = options.sample_rate, options.samples_per_frame
+        free = options.bitrate_kbps if options.free_format else None
     for b, data in enumerate(streams):
-        frames = _frames(bytes(data))
-        if len(frames) != n_frames or (sizes and {len(f) for f in frames} - sizes):
+        frames = walk_frames(bytes(data), free)
+        if (
+            len(frames) != n_frames
+            or (sizes and {f["size"] for f in frames} - sizes)
+            or {(f["sample_rate"], f["samples"]) for f in frames} != {(rate, samples)}
+            or (free and {f["bitrate_index"] for f in frames} != {0})
+        ):
             raise AssertionError(f"stream {b}: bad frame walk ({len(frames)} frames)")
 
 
 def _check_pack(pack_input, what: str, card: str, repeat: int = 3, frames: int = None) -> int:
     """K2 against its plain version, bit-exact, on a path's own pack input
     and on its slots `repeat` times over (frames past the cap; the first
-    `frames` frames only, if given); its time, bound and share. Returns the
-    number of frames past the cap."""
+    `frames` frames only, if given; repeat=None: the fewest times over, 3
+    at least and 16 at most, that take the fullest frame past the cap); its
+    time, bound and share. Returns the number of frames past the cap."""
     import torch
 
     from swiftmp3_tpu_torch.ops import kernels
@@ -371,6 +441,9 @@ def _check_pack(pack_input, what: str, card: str, repeat: int = 3, frames: int =
     c_d, n_d, cap = pack_input
     err, over = 0, 0
     c_r, n_r = c_d[:frames], n_d[:frames]
+    if repeat is None:
+        fullest = max(int(n_r.sum(dim=1).max()), 1)
+        repeat = min(max(3, 8 * cap // fullest + 1), 16)
     for c, n in ((c_d, n_d), (torch.cat([c_r] * repeat, 1).contiguous(),
                               torch.cat([n_r] * repeat, 1).contiguous())):
         by, tot = kernels.pack(c, n, cap)
@@ -552,7 +625,7 @@ def _drive(options, audio, steps: int):
     rendered to bytes (under window_sequencing with each frame's lookahead
     granule); the launch counts are set to 0 just before and read just
     after. Returns (streams, step device ms, step+render wall s, launches,
-    the first pack call's (chunks, nbits, cap))."""
+    the _FirstInputs with the first sweep and pack calls' inputs)."""
     from tests.torch_inputs import step_lookahead
 
     import torch
@@ -588,7 +661,7 @@ def _drive(options, audio, steps: int):
             launches = dict(kernels.LAUNCHES)
     finally:
         enc.close()
-    return streams, step_ms, wall_s, launches, first.pack
+    return streams, step_ms, wall_s, launches, first
 
 
 def _hq_dc(mono_audio, card: str) -> None:
@@ -604,14 +677,14 @@ def _hq_dc(mono_audio, card: str) -> None:
     runs = {}
     for label, o, steps in (("off", dc_off, STEPS_DC), ("dc", dc_opts, STEPS_DC),
                             ("dc3p", dc_is_options("hq_dc3p_mono128", MP3EncoderOptions), 1)):
-        d_streams, d_step_ms, _, d_launches, d_pack = _drive(o, mono_audio, steps)
+        d_streams, d_step_ms, _, d_launches, d_first = _drive(o, mono_audio, steps)
         if d_launches["pack"] < steps:
             raise AssertionError(f"the hq dc path ({label}) launched pack {d_launches['pack']} times")
         _check_walks(d_streams, steps * T_MAIN, o)
         runs[label] = (d_streams, d_step_ms, d_launches)
         if label == "dc":
-            dc_pack = d_pack
-        del d_pack
+            dc_pack = d_first.pack
+        del d_first
     dc_flips = sum(_compare_streams(bytes(a), bytes(b), "hq dc vs dc off")
                    for a, b in zip(runs["dc"][0], runs["off"][0]))
     if dc_flips == 0:
@@ -638,17 +711,24 @@ def _hq_is(card: str) -> None:
     steps), some frames emitting intensity; K2 on the IS path's pack
     input."""
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
-    from tests.torch_inputs import B_MAIN, DC_IS_OPTIONS, T_MAIN, dc_is_options, panned_audio
+    from tests.torch_inputs import (
+        B_MAIN,
+        DC_IS_OPTIONS,
+        T_MAIN,
+        dc_is_options,
+        panned_audio,
+        walk_frames,
+    )
 
     is_opts = dc_is_options("hq_is_32k", MP3EncoderOptions)
     audio_s = B_MAIN * T_MAIN * 1152 / is_opts.sample_rate
     irng = np.random.default_rng(12)
     is_audio = [panned_audio(irng, B_MAIN, T_MAIN) for _ in range(STEPS_IS)]
-    i_streams, i_step_ms, i_wall_s, i_launches, i_pack = _drive(is_opts, is_audio, STEPS_IS)
+    i_streams, i_step_ms, i_wall_s, i_launches, i_first = _drive(is_opts, is_audio, STEPS_IS)
     if i_launches["pack"] < STEPS_IS:
         raise AssertionError(f"the hq is path launched pack {i_launches['pack']} times")
     _check_walks(i_streams, STEPS_IS * T_MAIN, is_opts)
-    emit = sum(f.mode_extension == 1 for d in i_streams for f in _parsed(bytes(d)))
+    emit = sum(f["mode_extension"] == 1 for d in i_streams for f in walk_frames(bytes(d)))
     if emit == 0:
         raise AssertionError("the hq is path emitted no intensity frame")
     print(f"[hq is] BatchEncoder hq {DC_IS_OPTIONS['hq_is_32k'][1]} (lowpass_hz "
@@ -662,7 +742,7 @@ def _hq_is(card: str) -> None:
     # a 32 kbps frame holds a fifth of the 128 kbps slots' bits: 8 times over
     # (on the first 4096 frames, within the plain version's memory) runs
     # frames past the cap
-    if _check_pack(i_pack, "hq is", card, repeat=8, frames=4096) == 0:
+    if _check_pack(i_first.pack, "hq is", card, repeat=8, frames=4096) == 0:
         raise AssertionError("no frame of the hq is pack check ran past the cap")
 
 
@@ -704,6 +784,97 @@ def _parity_dc_is() -> None:
             ceiling is not None and flips["golden"] > ceiling
         ):
             raise AssertionError(f"{preset} byte flips above the pinned ceiling")
+
+
+def _lsf(mono_audio, card: str) -> dict:
+    """Phase 4j: the LSF paths at full width ([lsf strict], [lsf hq], [lsf
+    iso]: 256 streams x 128 frames of 576 samples of bench audio at their
+    rates, STEPS_LSF steps each) and free format ([free format]: one step of
+    the main bench audio's left channel); every frame walk checked, step
+    times printed; K1 against its plain version on the lsf iso path's sweep
+    input, K2 on each path's pack input and on its slots three times over
+    (past the cap). Returns each path's launch counts."""
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+    from tests.torch_inputs import B_MAIN, LSF_PATHS, T_MAIN, bench_audio, build_options, walk_frames
+
+    lrng = np.random.default_rng(13)
+    audio_of = {}  # (channels, rate) -> STEPS_LSF steps of LSF bench audio
+    launches = {}
+    for path, (factory, kw) in LSF_PATHS.items():
+        o = build_options(factory, kw, MP3EncoderOptions)
+        if o.free_format:
+            audio, steps = mono_audio, 1
+        else:
+            key = (o.channels, o.sample_rate)
+            if key not in audio_of:
+                audio_of[key] = [bench_audio(lrng, B_MAIN, T_MAIN, o.channels, o.sample_rate, spf=576)
+                                 for _ in range(STEPS_LSF)]
+            audio, steps = audio_of[key], STEPS_LSF
+        streams, step_ms, wall_s, p_launches, first = _drive(o, audio, steps)
+        for name in ("rate_sweep", "pack") if path == "lsf iso" else ("pack",):
+            if p_launches[name] < steps:
+                raise AssertionError(f"the {path} path launched {name} {p_launches[name]} times "
+                                     f"in {steps} steps")
+        _check_walks(streams, steps * T_MAIN, o)
+        f0 = walk_frames(bytes(streams[0]), o.bitrate_kbps if o.free_format else None)[0]
+        audio_s = B_MAIN * T_MAIN * o.samples_per_frame / o.sample_rate
+        print(f"[{path}] BatchEncoder {factory or 'MP3EncoderOptions'}({kw}) B={B_MAIN} T={T_MAIN} x "
+              f"{steps} steps, {card}: {B_MAIN} streams x {steps * T_MAIN} frames walk OK (MPEG-"
+              f"{f0['version']} headers, bitrate index {f0['bitrate_index']}, {f0['samples']} samples "
+              f"a frame, main_data cap {first.pack[2]} B); step+render wall s "
+              f"{['%.3f' % t for t in wall_s]}; launches {p_launches}", flush=True)
+        for k, t in enumerate(step_ms):
+            print(f"[{path}] step {k} device ms {t:.2f} ({audio_s / (t / 1e3):.1f} audio-s/s)", flush=True)
+        del streams
+        if path == "lsf iso":
+            _check_sweep(first.sweep, path, card)
+        # an LSF frame's slots hold a fraction of the cap's bits: enough
+        # times over (on the first 4096 frames) runs frames past it
+        if _check_pack(first.pack, path, card, repeat=None, frames=4096) == 0:
+            raise AssertionError(f"no frame of the {path} pack check ran past the cap")
+        del first
+        launches[path] = p_launches
+    return launches
+
+
+def _parity_lsf() -> None:
+    """The LSF and free-format rows against the JAX package's frozen bytes,
+    each as a card batch of ODD_STEP (7) frames a step (LSF chunks of an
+    odd number of frames) against the JAX batch at 7 a step, and as a card
+    session against the JAX session: the card's own bytes within a ceiling
+    per row, and with the CPU filterbank and MDCT exact both ways."""
+    from swiftmp3_tpu_torch.encoder import new_session
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+    from swiftmp3_tpu_torch.parallel import encode_batch
+    from tests.torch_inputs import FF_ROWS, LSF_ROWS, ODD_STEP, jax_path, lsf_row_options, lsf_row_pcm
+
+    for row in (*LSF_ROWS, *FF_ROWS):
+        o = lsf_row_options(row, MP3EncoderOptions)
+        pcm = lsf_row_pcm(row)
+        free = o.bitrate_kbps if o.free_format else None
+        refs = []
+        for stem in (f"{row}_step{ODD_STEP}", row):
+            with open(jax_path(stem), "rb") as fh:
+                refs.append(fh.read())
+        n_frames = len(_frames(refs[1], free))
+
+        def batch_and_session():
+            s = new_session(o)
+            return encode_batch(o, [pcm], frames_per_step=ODD_STEP)[0], s.encode(pcm) + s.flush()
+
+        got = batch_and_session()
+        with _CpuFilterbank():
+            swapped = batch_and_session()
+        for how, data, ref in zip(("batch", "session"), swapped, refs):
+            if data != ref:
+                raise AssertionError(f"{row}: the card {how} with the CPU filterbank and MDCT differs "
+                                     f"from the JAX bytes in {_compare_streams(data, ref, row, free)} frames")
+        flips = [_compare_streams(data, ref, f"{row} vs JAX", free) for data, ref in zip(got, refs)]
+        print(f"[parity lsf] {row}: vs JAX as a card batch {flips[0]}/{n_frames}, as a card session "
+              f"{flips[1]}/{n_frames} (ceiling {LSF_JAX_FLIP_CEILING[row]}); with the CPU filterbank "
+              f"and MDCT 0/{n_frames} both ways", flush=True)
+        if max(flips) > LSF_JAX_FLIP_CEILING[row]:
+            raise AssertionError(f"{row} byte flips above the pinned ceiling")
 
 
 def main() -> int:
@@ -751,6 +922,7 @@ def main() -> int:
         jax_path,
         knife_edge_sweep_input,
         make_signal,
+        walk_frames,
     )
     from tools.torch_profile_step import cuda_ms, filterbank_input, filterbank_stage
 
@@ -858,23 +1030,11 @@ def main() -> int:
     # ---- 3b. K3 polyphase filterbank vs its plain version and the matmul ------
     hist_main = chunk_main[..., -480:].roll(1, dims=0).contiguous()  # nonzero history
     err = 0
-    for rows, T in ((B_MAIN, T_MAIN), (1, 8), (3, 3)):
-        hist = hist_main[:rows].contiguous()
-        pcm = chunk_main[:rows, :, : T * 1152].contiguous()
-        S, x = kernels.polyphase_chunk(hist, pcm)
-        S_p, x_p = kernels.polyphase_chunk_plain(hist, pcm)
-        S_m, _ = dsp.polyphase_chunk_matmul(hist, pcm)
-        e_p = float((S - S_p).abs().max())
-        e_m = float((S - S_m).abs().max())
-        if not (e_p <= K3_TOLERANCE and e_m <= K3_TOLERANCE and torch.equal(x, x_p)):
-            raise AssertionError(
-                f"polyphase kernel at {rows * 2} rows x T={T}: max err {e_p:.3g} vs plain, "
-                f"{e_m:.3g} vs the folded matmul (tolerance {K3_TOLERANCE}), "
-                f"x equal {torch.equal(x, x_p)}"
-            )
-        err = max(err, e_p)
-        print(f"[K3] polyphase {rows * 2} rows x T={T} ({36 * T} windows): max err "
-              f"{e_p:.3g} vs plain, {e_m:.3g} vs folded matmul, x identical", flush=True)
+    # the main path's shape, session shapes, and an LSF chunk of an odd
+    # number of frames (127 x 576 samples: 2286 windows, not a multiple of 4)
+    for rows, n, what in ((B_MAIN, T_MAIN * 1152, f"T={T_MAIN}"), (1, 8 * 1152, "T=8"),
+                          (3, 3 * 1152, "T=3"), (B_MAIN, 127 * 576, "LSF T=127")):
+        err = max(err, _check_polyphase(hist_main[:rows], chunk_main[:rows, :, :n], what))
     # the path that runs K3: the filterbank stage of tools/torch_profile_step.py
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -914,7 +1074,7 @@ def main() -> int:
 
     # ---- 4b. the strict path ---------------------------------------------------
     s_opts = MP3EncoderOptions.spec_strict(**STRICT_OPTIONS)
-    s_streams, s_step_ms, s_wall_s, s_launches, s_pack = _drive(s_opts, audio, STEPS_STRICT)
+    s_streams, s_step_ms, s_wall_s, s_launches, s_first = _drive(s_opts, audio, STEPS_STRICT)
     if s_launches["pack"] < STEPS_STRICT:
         raise AssertionError(f"the strict path launched pack {s_launches['pack']} times "
                              f"in {STEPS_STRICT} steps")
@@ -924,15 +1084,15 @@ def main() -> int:
           f"({audio_s / (s_step_ms[-1] / 1e3):.1f} audio-s/s at the last step); step+render "
           f"wall s {['%.3f' % t for t in s_wall_s]}; {B_MAIN} streams x "
           f"{STEPS_STRICT * T_MAIN} frames walk OK; launches {s_launches}", flush=True)
-    _check_pack(s_pack, "strict", card)
-    del s_pack
+    _check_pack(s_first.pack, "strict", card)
+    del s_first
     phase_done("strict")
 
     # ---- 4c. the hq paths ---------------------------------------------------------
     hq_opts = {p: MP3EncoderOptions.hq(**kw) for p, kw in HQ_OPTIONS.items()}
     hq_launches = {}
     for preset, steps in (("hq_joint", STEPS_HQ), ("hq_stereo", 1)):
-        h_streams, h_step_ms, h_wall_s, h_launches, h_pack = _drive(
+        h_streams, h_step_ms, h_wall_s, h_launches, h_first = _drive(
             hq_opts[preset], audio, steps
         )
         if h_launches["pack"] < steps:
@@ -946,8 +1106,8 @@ def main() -> int:
               f"wall s {['%.3f' % t for t in h_wall_s]}; {B_MAIN} streams x {steps * T_MAIN} "
               f"frames walk OK; launches {h_launches}", flush=True)
         if preset == "hq_joint":
-            hq_pack = h_pack
-        del h_streams, h_pack
+            hq_pack = h_first.pack
+        del h_streams, h_first
     _check_pack(hq_pack, "hq", card)
     print(f"[K2 hq] launches on the hq paths {({p: v['pack'] for p, v in hq_launches.items()})}",
           flush=True)
@@ -1038,7 +1198,7 @@ def main() -> int:
 
     # ---- 4g. hq at 96 kbps (the adaptive lowpass), demand VBR, depth 3 -----------
     hq96 = MP3EncoderOptions.hq(**HQ_FLAG_OPTIONS["hq_joint_96k"])
-    h_streams, h_step_ms, h_wall_s, h_launches, h_pack = _drive(hq96, audio, STEPS_HQ96)
+    h_streams, h_step_ms, h_wall_s, h_launches, h_first = _drive(hq96, audio, STEPS_HQ96)
     if h_launches["pack"] < STEPS_HQ96:
         raise AssertionError(f"the hq96 path launched pack {h_launches['pack']} times")
     _check_walks(h_streams, STEPS_HQ96 * T_MAIN, hq96)
@@ -1050,28 +1210,30 @@ def main() -> int:
     for k, t in enumerate(h_step_ms):
         print(f"[hq96] step {k} device ms {t:.2f} ({audio96 / (t / 1e3):.1f} audio-s/s)", flush=True)
     del h_streams
-    _check_pack(h_pack, "hq96", card)
-    del h_pack
+    _check_pack(h_first.pack, "hq96", card)
+    del h_first
     mono_audio = [a[..., 0::2].copy() for a in audio[:2]]  # bench audio is dual mono
     for preset in ("hq_vbr_demand_q5", "hq_mono_96k_depth3"):
         o = MP3EncoderOptions.hq(**HQ_FLAG_OPTIONS[preset])
-        f_streams, f_step_ms, _, f_launches, f_pack = _drive(o, mono_audio, 1)
+        f_streams, f_step_ms, _, f_launches, f_first = _drive(o, mono_audio, 1)
         if f_launches["pack"] < 1:
             raise AssertionError(f"the {preset} path never launched pack")
         _check_walks(f_streams, T_MAIN, o)
-        rates = sorted({f.bitrate_kbps for d in f_streams[:32] for f in _parsed(bytes(d))})
+        rates = sorted({f["bitrate_kbps"] for d in f_streams[:32] for f in walk_frames(bytes(d))})
         print(f"[hq flags] {preset} {HQ_FLAG_OPTIONS[preset]} B={B_MAIN} T={T_MAIN} x 1 step, "
               f"{card}: step device ms {f_step_ms[0]:.2f}; walks OK; bitrates in use "
               f"(32 streams) {rates}; launches {f_launches}", flush=True)
         del f_streams
-        _check_pack(f_pack, preset, card)
-        del f_pack
+        _check_pack(f_first.pack, preset, card)
+        del f_first
     phase_done("hq96 and hq flags")
 
     _hq_dc(mono_audio, card)
     phase_done("hq dc")
     _hq_is(card)
     phase_done("hq is")
+    lsf_launches = _lsf(mono_audio, card)
+    phase_done("lsf and free format")
 
     # ---- 5. parity ---------------------------------------------------------
     fixture_flips, fixture_frames = 0, 0
@@ -1200,6 +1362,8 @@ def main() -> int:
     phase_done("parity hq flags")
     _parity_dc_is()
     phase_done("parity dc is")
+    _parity_lsf()
+    phase_done("parity lsf")
 
     # ---- 6. result lines ----------------------------------------------------
     rows = [
@@ -1210,9 +1374,12 @@ def main() -> int:
         ("polyphase", "swiftmp3_tpu_torch/ops/csrc/polyphase.cu",
          "swiftmp3_tpu/ops/pallas_kernels.py:77"),
     ]
-    # K1 and K2 counted on the main path and the serving pool, K3 on the
-    # filterbank stage
-    launches = {n: main_launches[n] + serve_launches[n] for n in ("rate_sweep", "pack")}
+    # K1 and K2 counted on the main path, the serving pool and the LSF and
+    # free-format paths, K3 on the filterbank stage
+    launches = {
+        n: main_launches[n] + serve_launches[n] + sum(v[n] for v in lsf_launches.values())
+        for n in ("rate_sweep", "pack")
+    }
     launches["polyphase"] = k3_launches
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,

@@ -6,18 +6,17 @@ it keeps its own copies of the reference's host modules (`options`,
 `tables`, `io`, `native`, `streaming`, and the session in `encoder`), laid
 out under the same names, so a reader finds each counterpart by path.
 
-It covers the compat, spec_strict and hq chunk programs at MPEG-1 rates
-(the hq flags included: the static and adaptive lowpass, demand VBR,
-reservoir depth 1-8, distortion control and intensity stereo) on one
-device, through every entry point of the reference but the mesh:
+It covers the compat, spec_strict and hq chunk programs (the hq flags
+included: the static and adaptive lowpass, demand VBR, reservoir depth 1-8,
+distortion control and intensity stereo) at MPEG-1 rates, at the LSF rates
+of MPEG-2 and 2.5 (8-24 kHz, one granule a frame) and in free format, on
+one device, through every entry point of the reference but the mesh:
 
     swiftmp3_tpu_torch.encoder.new_session(options)              # one stream
     swiftmp3_tpu_torch.parallel.BatchEncoder(options, B, T)      # B streams
     swiftmp3_tpu_torch.parallel.encode_batch / encode_corpus     # files
     swiftmp3_tpu_torch.parallel.StreamPool(options, lanes, T)    # serving
     python -m swiftmp3_tpu_torch in.wav out.mp3 [--device cpu]   # command line
-
-LSF and free format raise NotImplementedError, naming their ROADMAP item.
 
 Every entry point runs on the card ("cuda") unless the caller passes
 `device="cpu"`; nothing falls back to the CPU on its own. Every Pallas

@@ -43,9 +43,8 @@ GAPLESS_DECODER_DELAY = 529
 
 def new_session(options: MP3EncoderOptions, device="cuda") -> "EncoderSession":
     """A fresh encoder session running the port on `device` (the card by
-    default; pass "cpu" for the CPU). Raises NotImplementedError for options
-    outside the port's slices, and RuntimeError for a CUDA device when no
-    card is present."""
+    default; pass "cpu" for the CPU). Raises RuntimeError for a CUDA device
+    when no card is present."""
     return EncoderSession(options, TorchBackend(options, device))
 
 

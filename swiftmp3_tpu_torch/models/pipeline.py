@@ -2,7 +2,11 @@
 over T. Twin of `swiftmp3_tpu.models.pipeline.make_chunk_fn` for the compat
 preset, the spec_strict preset and the hq preset with its flags (the static
 and adaptive lowpass, demand VBR, reservoir depth 1-8, distortion control,
-intensity stereo) at MPEG-1 rates.
+intensity stereo), at MPEG-1 rates and at the LSF rates of MPEG-2 and 2.5
+(8-24 kHz: one granule a frame, 72 slots a kbps, 9/17-byte side info, the
+255-byte reservoir reach, the 9-bit scalefac_compress, the band-derived
+region-0 boundary of switching granules), and in free format (header index
+0, the exact rate sizing the frame).
 
 Per chunk of T frames x B streams:
 
@@ -59,11 +63,24 @@ from ..io.framing import FrameResult
 from ..io.sideinfo import GranuleInfo
 from ..ops import dsp, kernels
 from ..options import SAMPLES_PER_GRANULE, MP3EncoderOptions, Mode
-from ..tables import BITRATE_TABLE_V1, QCAP_LINBITS, bitrate_index, bitrate_value, mode_bits
+from ..tables import (
+    BITRATE_TABLE_V1,
+    BITRATE_TABLE_V2,
+    QCAP_LINBITS,
+    bitrate_index,
+    bitrate_value,
+    bitrate_value_lsf,
+    mixed_switch_bound,
+    mode_bits,
+    switch_bound,
+)
 
 MAX_FRAME_MAIN_BITS = 1152 * 15  # all pair slots at 15 bits
-# the MPEG-1 Layer III bitrates (kbps) demand VBR chooses among
+# the Layer III bitrates (kbps) demand VBR chooses among: MPEG-1, and at LSF
+# rates MPEG-2's (the latter a copy of swiftmp3_tpu/ops/reference.py
+# LSF_L3_BITRATES; tests hold it equal)
 VBR_BITRATES = tuple(int(b) for b in BITRATE_TABLE_V1 if b)
+LSF_L3_BITRATES = tuple(int(b) for b in BITRATE_TABLE_V2 if b)
 # The linbits law's initial-gain target (peaks quantize near 2048) and its
 # demand probe (the grid candidate whose priced bits are a granule's demand
 # under demand_budget): copies of swiftmp3_tpu/ops/reference.py
@@ -108,22 +125,25 @@ def lowpass_cut(options: MP3EncoderOptions) -> int | None:
     return int(lp * 64 // options.sample_rate)
 
 
-def check_supported(options: MP3EncoderOptions) -> None:
-    """Raise NotImplementedError for any option outside the port (the
-    compat, spec_strict and hq chunk programs at MPEG-1 rates, distortion
-    control and intensity stereo included), naming the ROADMAP Queue 1 item
-    that brings it."""
-    o = options
-    unsupported = [
-        (bool(o.lsf), "LSF sample rates", 11),
-        (o.free_format, "free_format", 11),
-    ]
-    for active, name, item in unsupported:
-        if active:
-            raise NotImplementedError(
-                f"{name} is not in the PyTorch port yet (ROADMAP Queue 1 "
-                f"item {item}); the port covers the MPEG-1 chunk programs"
-            )
+def frame_geometry(options: MP3EncoderOptions) -> tuple[int, int, int]:
+    """(slots a kbps, side-info bytes, CRC bytes) of a frame: 144 and 17/32
+    (mono/stereo) at MPEG-1; 72 and 9/17 at LSF rates, whose frames carry
+    one granule (pipeline.py:141-147, 166-189)."""
+    mono = options.channels == 1
+    crc = 2 if options.crc_protected else 0
+    if options.lsf:
+        return 72, 9 if mono else 17, crc
+    return 144, 17 if mono else 32, crc
+
+
+def frame_bitrate(options: MP3EncoderOptions, kbps: int) -> tuple[int, int]:
+    """(header bitrate index, kbps) of a frame at `kbps`: in free format
+    index 0 and the exact rate (ISO 11172-3 2.4.2.3); else the table entry
+    nearest to kbps, from the MPEG-2 table at LSF rates."""
+    if options.free_format:
+        return 0, kbps
+    index = bitrate_index(kbps, options.sample_rate)
+    return index, bitrate_value_lsf(index) if options.lsf else bitrate_value(index)
 
 
 def resolve_device(device) -> torch.device:
@@ -198,14 +218,15 @@ def lowpass_stage(
 
 def demand_vbr_candidates(options: MP3EncoderOptions) -> tuple[list, list]:
     """Demand VBR's candidate bitrates, the band [32, min(table top, base +
-    64 - 4q)], and each one's slot in bits (pipeline.py:729-765). At MPEG-1
-    rates the top is at least 32 + 64 - 36, so the band is never empty."""
+    64 - 4q)] of the MPEG-1 table, or at LSF rates [8, ...] of the MPEG-2
+    one, and each one's slot in bits (pipeline.py:736-765). The top is at
+    least the base's lowest value + 64 - 36, so the band is never empty."""
     sr = options.sample_rate
-    top = min(VBR_BITRATES[-1], options.bitrate_kbps + 64 - options.quality * 4)
-    cands = [b for b in VBR_BITRATES if 32 <= b <= top]
-    side = 17 if options.channels == 1 else 32
-    crc = 2 if options.crc_protected else 0
-    return cands, [((144 * b * 1000) // sr - 4 - crc - side) * 8 for b in cands]
+    table, low = (LSF_L3_BITRATES, 8) if options.lsf else (VBR_BITRATES, 32)
+    top = min(table[-1], options.bitrate_kbps + 64 - options.quality * 4)
+    cands = [b for b in table if low <= b <= top]
+    slots_per_kbps, side, crc = frame_geometry(options)
+    return cands, [((slots_per_kbps * b * 1000) // sr - 4 - crc - side) * 8 for b in cands]
 
 
 def demand_vbr_bitrate(
@@ -220,19 +241,37 @@ def demand_vbr_bitrate(
 
 def main_data_cap(options: MP3EncoderOptions) -> int:
     """Static per-frame cap (bytes) of the packed main_data image
-    (pipeline.py:118-149, MPEG-1): the frame's largest slot plus the
-    reservoir reach, bounded by 1152 pair slots x 15 bits; even."""
+    (pipeline.py:118-149): the frame's largest slot (the top VBR rate, 160
+    kbps at LSF rates; free format's exact rate) plus the reservoir reach
+    (511 bytes, 255 at LSF), bounded by 1152 pair slots x 15 bits; even."""
     sr = options.sample_rate
     if options.vbr:
-        max_kbps = min(320, options.bitrate_kbps + 64 - options.quality * 4)
+        top = 160 if options.lsf else 320
+        max_kbps = min(top, options.bitrate_kbps + 64 - options.quality * 4)
     else:
         max_kbps = options.bitrate_kbps
-    br_val = bitrate_value(bitrate_index(max_kbps, sr))
-    side = 17 if options.channels == 1 else 32
-    crc = 2 if options.crc_protected else 0
-    slot_max = (144 * br_val * 1000) // sr + 1 - 4 - crc - side
+    _, br_val = frame_bitrate(options, max_kbps)
+    slots_per_kbps, side, crc = frame_geometry(options)
+    slot_max = (slots_per_kbps * br_val * 1000) // sr + 1 - 4 - crc - side
     cap = min(MAX_FRAME_MAIN_BITS // 8, slot_max + options.reservoir_cap + 1)
     return cap + (cap & 1)
+
+
+def switch_region0(block: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """The region-0 line boundary of switching granules at LSF rates, by
+    block type (pipeline.py:567-584): band-derived for SHORT
+    (tables.switch_bound(sr, True)) and for START/STOP (switch_bound(sr,
+    False)), the decoders' reading for MIXED (tables.mixed_switch_bound: 36,
+    or 54 and 108 at MPEG-2.5 rates). Long granules ignore it."""
+    return torch.where(
+        block == dsp.BLOCK_SHORT,
+        switch_bound(sample_rate, True),
+        torch.where(
+            block == dsp.BLOCK_MIXED,
+            mixed_switch_bound(sample_rate),
+            switch_bound(sample_rate, False),
+        ),
+    ).to(torch.int32)
 
 
 def intensity_stage(
@@ -353,8 +392,9 @@ def distortion_pass(
 
 def make_chunk_fn(options: MP3EncoderOptions):
     """Build the chunk encode function
-    (carry, pcm [B,T,1152*ch], final [B,T], valid [B,T], la=None) ->
-    (carry, outputs).
+    (carry, pcm [B,T,spf*ch], final [B,T], valid [B,T], la=None) ->
+    (carry, outputs), spf = options.samples_per_frame (1152, or 576 at LSF
+    rates).
 
     All tensors lie on one device, the carry's. pcm is float32 or int16
     (normalized by 1/32768). la [B, T, 576*ch]: each frame's lookahead, the
@@ -362,21 +402,18 @@ def make_chunk_fn(options: MP3EncoderOptions):
     window_sequencing and ignored otherwise. outputs = {"packed": [B, T,
     cap + 4*M] uint8}: each frame's main_data image followed by its int32
     side-info words, little-endian (the layout `fetch_outputs` reads)."""
-    check_supported(options)
     sr = options.sample_rate
     ch = options.channels
-    n_gr = options.n_granules
-    spf = options.samples_per_frame
-    res_cap = options.reservoir_cap
+    lsf = bool(options.lsf)
+    n_gr = options.n_granules  # 1 at LSF rates
+    spf = options.samples_per_frame  # 1152, or 576 at LSF rates
+    res_cap = options.reservoir_cap  # 511, or 255 at LSF rates
     n_gran = n_gr * ch
-    side_size = 17 if ch == 1 else 32
-    crc_size = 2 if options.crc_protected else 0
+    slots_per_kbps, side_size, crc_size = frame_geometry(options)
     is_vbr = options.vbr
     base_kbps = options.bitrate_kbps
     quality = options.quality
-    cbr_index = bitrate_index(base_kbps, sr)
-    cbr_value = bitrate_value(cbr_index)
-    slots_per_kbps = 144
+    cbr_index, cbr_value = frame_bitrate(options, base_kbps)
     cap_bytes = main_data_cap(options)
     aligned = options.reservoir_mode == "aligned"
     iso_quant = options.iso_quantization
@@ -510,6 +547,11 @@ def make_chunk_fn(options: MP3EncoderOptions):
                 # raw L/R verdicts, the more transient winning (pipeline.py:388-403)
                 shared = torch.amax(raw_verdicts(), dim=1, keepdim=True)
                 block_b = torch.where(use_ms[:, None, :, None], shared, block_b)
+            if lsf and not iso_short:
+                # LSF mixed blocks need the ISO layout of iso_short_blocks;
+                # without it they are SHORT (pipeline.py:380-387, 398-401:
+                # demoting before the shared maximum is demoting after it)
+                block_b = torch.where(block_b == dsp.BLOCK_MIXED, dsp.BLOCK_SHORT, block_b)
             if is_shared_blk is not None:
                 # intensity-gated frames share the raw verdict (pipeline.py:404-411)
                 block_b = torch.where(is_gate[:, None, :, None], is_shared_blk[:, None], block_b)
@@ -540,14 +582,15 @@ def make_chunk_fn(options: MP3EncoderOptions):
             if options.real_scalefactors:
                 sfd = dsp.granule_scalefactors_device(
                     spectra, sr, sf_block_b, psy=options.psy_scalefactors,
-                    iso_short=iso_short,
+                    iso_short=iso_short, lsf=lsf,
                 )
                 g0 = dsp.initial_gain_scaled(
                     spectra, sfd["mag_scale"], target=LINBITS_Q_TARGET if linbits else 15.0
                 )
                 mag_scale, part2 = sfd["mag_scale"], sfd["part2"]
-                if options.scfsi:
+                if options.scfsi and not lsf:
                     # granule 1 skips the band groups equal to granule 0's
+                    # (an LSF frame has one granule: no scfsi)
                     scfsi_nib, sf_write = dsp.scfsi_device(sfd["sf"], long_layout_b)
                     part2 = dsp.scfsi_part2_device(sfd, sf_write)
                 if is_emit is not None:
@@ -561,13 +604,15 @@ def make_chunk_fn(options: MP3EncoderOptions):
                 g0 = dsp.initial_gain(spectra, iso=iso_quant)
                 mag_scale = part2 = None
 
+            b0_sw = switch_region0(block_b, sr) if lsf else None
+
             def sweep(g0, mag_scale, part2):
                 if pad_part2 is not None:
                     part2 = pad_part2(part2)
                 return dsp.rate_loop_precompute_strict(
                     spectra, g0, sr, is_long_b, iso_quant, options.count1_coding,
                     options.region_table_select, mag_scale=mag_scale, part2=part2,
-                    block=block_b, iso_short=iso_short, linbits=linbits,
+                    block=block_b, iso_short=iso_short, linbits=linbits, b0_switch=b0_sw,
                 )
 
             pre = sweep(g0, mag_scale, part2)
@@ -661,13 +706,13 @@ def make_chunk_fn(options: MP3EncoderOptions):
             if vbr_demand:
                 target = demand_vbr_bitrate(frame_demand_t[t], slots_c, cands_c)
                 br_idx = dsp.bitrate_index_device(target, sr)
-                br_val = dsp.bitrate_value_device(br_idx)
+                br_val = dsp.bitrate_value_device(br_idx, lsf=lsf)
             elif is_vbr:
                 target = dsp.vbr_choose_bitrate(
                     frame_e[t], c["vbr_ehist"], c["vbr_count"], base_kbps, quality
                 )
                 br_idx = dsp.bitrate_index_device(target, sr)
-                br_val = dsp.bitrate_value_device(br_idx)
+                br_val = dsp.bitrate_value_device(br_idx, lsf=lsf)
             else:
                 br_idx, br_val = br_idx_c, br_val_c
 
@@ -1031,7 +1076,7 @@ class TorchBackend:
     def encode_frames(
         self, frames: np.ndarray, is_final: np.ndarray, lookahead: np.ndarray = None
     ) -> List[FrameResult]:
-        """Encode frames [F, 1152*ch]; under window_sequencing, lookahead
+        """Encode frames [F, spf*ch]; under window_sequencing, lookahead
         [F, 576*ch] holds each frame's next raw granule (zeros when absent,
         as past a stream's end)."""
         n = self.options.samples_per_frame * self.options.channels

@@ -1,5 +1,6 @@
 """Batched granule DSP of the compat, spec_strict and hq chunk programs
-(distortion control and intensity stereo included), in PyTorch.
+(distortion control and intensity stereo included), at MPEG-1 and LSF
+rates, in PyTorch.
 
 Twin of `swiftmp3_tpu.ops.dsp` for the ops those presets run. Same shapes and
 layouts as the JAX functions (batch-leading, [..., 576] granule rows), same
@@ -300,27 +301,26 @@ def polyphase_chunk_matmul(
     hist: torch.Tensor, pcm: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The ISO analysis filterbank over a whole chunk as five folded
-    [128, 128] fp32 matmuls (dsp.py:311-348, MPEG-1 chunks: 36T is a
-    multiple of 4). hist: [..., 480]; pcm: [..., T*1152]. Returns
-    (S [..., 36T, 32], full signal x [..., 480 + T*1152])."""
+    [128, 128] fp32 matmuls (dsp.py:311-348). hist: [..., 480]; pcm:
+    [..., n*32] for n windows (36 a frame at MPEG-1, 18 at LSF rates).
+    Returns (S [..., n, 32], full signal x [..., 480 + n*32]). The folded
+    form packs 4 windows a row: an LSF chunk of an odd number of frames
+    (n % 4 == 2) is padded with zero windows whose rows are sliced off
+    before they reach anything."""
     x_full = torch.cat([hist, pcm], dim=-1)
     L = x_full.shape[-1]
-    T36 = (L - 480) // 32
-    if T36 % 4:
-        raise NotImplementedError(
-            "odd-T LSF chunks (18 windows per frame) arrive with the LSF "
-            "slice (ROADMAP Queue 1 item 11)"
-        )
-    R_out = T36 // 4
-    x = torch.nn.functional.pad(x_full, (0, 32))
-    A = x.reshape(*x.shape[:-1], (L + 32) // 128, 128)
+    n_win = (L - 480) // 32
+    n_pad = (-n_win) % 4
+    x = torch.nn.functional.pad(x_full, (0, 32 * (n_pad + 1)))
+    R_out = (n_win + n_pad) // 4
+    A = x.reshape(*x.shape[:-1], (L + 32 * (n_pad + 1)) // 128, 128)
     fold = constant("poly_fold", x.device)
     S4 = None
     for d in range(5):
         term = torch.matmul(A[..., d : d + R_out, :], fold[d])
         S4 = term if S4 is None else S4 + term
-    S = S4.reshape(*S4.shape[:-2], T36, 32)
-    return S, x_full
+    S = S4.reshape(*S4.shape[:-2], n_win + n_pad, 32)
+    return S[..., :n_win, :], x_full
 
 
 # --- Transient detection and MDCT ---------------------------------------------
@@ -646,8 +646,10 @@ def bitrate_index_device(bitrate: torch.Tensor, sample_rate: int) -> torch.Tenso
     return torch.argmin(torch.abs(t - bitrate[..., None]), dim=-1).to(_I32)
 
 
-def bitrate_value_device(index: torch.Tensor) -> torch.Tensor:
-    return constant("bitrates_v1", index.device)[index.long()]
+def bitrate_value_device(index: torch.Tensor, lsf: bool = False) -> torch.Tensor:
+    """The bitrate (kbps) of each index, from the MPEG-1 table or at LSF
+    rates the MPEG-2 one (dsp.py:1269-1270)."""
+    return constant("bitrates_v2" if lsf else "bitrates_v1", index.device)[index.long()]
 
 
 # --- Emission: regions, preflag, table-15 chunks --------------------------------
@@ -777,6 +779,13 @@ SF_MULT34 = (2.0 ** (0.75 * np.arange(16, dtype=np.float64))).astype(np.float32)
 SF_SLOTS = 36  # scalefactor transmission slots per granule (reference.SF_SLOTS)
 # scfsi band groups, ISO 2.4.2.7 (reference.SCFSI_GROUPS)
 SCFSI_GROUPS = ((0, 6), (6, 11), (11, 16), (16, 21))
+# LSF (ISO 13818-3 2.4.3.2) case-0 scalefactor groups, slots a group: long,
+# short, and mixed (the 6-band long head, then short bands 3-11). Copies of
+# swiftmp3_tpu/ops/reference.py LSF_NSF_LONG / _SHORT / _MIXED (tests hold
+# them equal).
+LSF_NSF_LONG = (6, 5, 5, 5)
+LSF_NSF_SHORT = (9, 9, 9, 9)
+LSF_NSF_MIXED = (6, 9, 9, 9)
 # masking-driven scalefactors: spreading slope per band, share of the gap
 # (reference.PSY_SLOPE, PSY_ALPHA_NUM / PSY_ALPHA_DEN)
 PSY_SLOPE = 4
@@ -805,13 +814,15 @@ def _long_bounds(sample_rate: int) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(band_table(sample_rate))]).astype(np.int64)
 
 
-def build_slot_maps(sample_rate: int) -> np.ndarray:
+def build_slot_maps(sample_rate: int, n_head: int = 8) -> np.ndarray:
     """[3, 576] int64: the scalefactor slot each natural coefficient takes
     its 2^(0.75 sf) amplification from, for the long, mixed and short slot
     layouts (rows in block-type order); SF_SLOTS marks coefficients with no
     scalefactor (amplification 1). Long: band b -> slot b. Short: short band
     s, window w (coefficient 3 * line + w) -> slot 3s + w. Mixed: the long
-    head's bands 0-7 -> slots 0-7, short bands 3-11 -> slot 8 + 3(s - 3) + w."""
+    head's n_head bands (8 at MPEG-1, 6 at LSF; they cover the first three
+    short bands' lines either way) -> slots 0..n_head-1, short bands 3-11 ->
+    slot n_head + 3(s - 3) + w."""
     lb = _long_bounds(sample_rate)
     sb = short_band_bounds(sample_rate)
     coef = np.arange(576)
@@ -822,7 +833,7 @@ def build_slot_maps(sample_rate: int) -> np.ndarray:
     short_map = np.where(sband < 12, 3 * sband + w, SF_SLOTS)
     head = 3 * int(sb[3])  # natural coefficients under the mixed long head
     mixed_map = np.where(
-        coef < head, band, np.where(sband < 12, 8 + 3 * (sband - 3) + w, SF_SLOTS)
+        coef < head, band, np.where(sband < 12, n_head + 3 * (sband - 3) + w, SF_SLOTS)
     )
     return np.stack([long_map, mixed_map, short_map]).astype(np.int64)
 
@@ -840,6 +851,8 @@ def build_reorder_perms(sample_rate: int) -> np.ndarray:
 def _rate_table(name: str, sample_rate: int, device: torch.device) -> torch.Tensor:
     if name == "slot_maps":
         arr = build_slot_maps(sample_rate)
+    elif name == "slot_maps_lsf":
+        arr = build_slot_maps(sample_rate, n_head=6)
     elif name == "reorder":
         arr = build_reorder_perms(sample_rate)
     elif name == "unreorder":
@@ -941,10 +954,10 @@ def strict_layout_device(
     is_long [...] bool broadcasts against q's leading dims. assume_abs: q is
     already nonnegative and capped (the sweep). linbits: magnitudes up to
     QCAP_LINBITS, regions whose maximum passes 15 take a 24-family id and
-    each escaped coordinate costs the id's linbits width. b0_switch is the
-    LSF switching-granule region-0 boundary (MPEG-1 keeps 36)."""
-    if b0_switch is not None:
-        raise NotImplementedError("b0_switch belongs to LSF (ROADMAP Queue 1 item 11)")
+    each escaped coordinate costs the id's linbits width. b0_switch [...]
+    is the switching granules' region-0 line boundary at LSF rates
+    (band-derived: 36 to 108 by rate and block type); None keeps the MPEG-1
+    36."""
     dev = q.device
     cap = QCAP_LINBITS if linbits else 15
     av = q if assume_abs else torch.clamp(torch.abs(q), max=cap)
@@ -963,7 +976,7 @@ def strict_layout_device(
 
     r0, r1 = region_counts(bv, sample_rate)
     b0l, b1l = _region_bounds(r0, r1, sample_rate)
-    b0 = torch.where(is_long, b0l, 36)
+    b0 = torch.where(is_long, b0l, 36 if b0_switch is None else b0_switch)
     b1 = torch.where(is_long, b1l, 576)
 
     x = av[..., 0::2]
@@ -1091,6 +1104,7 @@ def rate_loop_precompute_strict(
         "strict": (sample_rate, count1_coding, region_table_select),
         "is_long": is_long,
         "linbits": linbits,
+        "b0_switch": b0_switch,
     }
 
 
@@ -1114,7 +1128,7 @@ def strict_finalize(
         q_sel = q_fixup(q_sel)
     lay = strict_layout_device(
         q_sel, sample_rate, pre["is_long"], count1_coding, region_table_select,
-        linbits=linbits,
+        linbits=linbits, b0_switch=pre.get("b0_switch"),
     )
     gain_out = torch.where(has_fit, gains_sel, torch.clamp(gains_sel + 4, max=255))
     return gain_out.to(_I32), q_sel, lay
@@ -1188,7 +1202,7 @@ def strict_chunks_device(
     )
 
 
-# --- Real scalefactors (twin of dsp.py:1882-2042 and 2527-2903, MPEG-1) -----------
+# --- Real scalefactors (twin of dsp.py:1882-2042 and 2527-2903) ------------------
 
 
 def _exponent(x: torch.Tensor) -> torch.Tensor:
@@ -1215,6 +1229,32 @@ def _finish(sf_slots: torch.Tensor, n1_slots: int, n2_slots: int) -> dict:
         "slen2": slen2,
         "slot_nbits": slen1[..., None] * w[0] + slen2[..., None] * w[1],
         "part2": (n1_slots * slen1 + n2_slots * slen2).to(_I32),
+    }
+
+
+def _finish_slots_lsf_device(sf_slots: torch.Tensor, ns: tuple) -> dict:
+    """The LSF case-0 finisher (dsp.py:2698-2733): 4 slot groups of ns[k]
+    slots, slen_k the bit length of the group's maximum, compress =
+    ((s1*5 + s2)*4 + s3)*4 + s4, the 9-bit scalefac_compress. The slot caps
+    (15, 15, 7, 7 at the group positions) bound the slens at (4, 4, 3, 3),
+    so compress < 400 (case 0). slen1/slen2 carry the first two groups'."""
+    dev = sf_slots.device
+    bitlen = constant("sf_bitlen", dev)
+    bounds = np.concatenate([[0], np.cumsum(ns)]).astype(np.int64)
+    slens = [
+        bitlen[torch.clamp(torch.amax(sf_slots[..., bounds[k] : bounds[k + 1]], dim=-1), max=15).long()]
+        for k in range(4)
+    ]
+    group = torch.zeros((4, SF_SLOTS), dtype=_I32, device=dev)
+    for k in range(4):
+        group[k, bounds[k] : bounds[k + 1]] = 1
+    slot_nbits = sum(slens[k][..., None] * group[k] for k in range(4))
+    return {
+        "compress": ((slens[0] * 5 + slens[1]) * 4 + slens[2]) * 4 + slens[3],
+        "slen1": slens[0],
+        "slen2": slens[1],
+        "slot_nbits": slot_nbits,
+        "part2": sum(int(ns[k]) * slens[k] for k in range(4)).to(_I32),
     }
 
 
@@ -1314,11 +1354,15 @@ def masking_thresholds(spectrum: torch.Tensor, sample_rate: int, quality: int) -
     return torch.cat(parts, dim=-1)
 
 
-def _switching_sfd_device(spectrum: torch.Tensor, sample_rate: int, mixed: bool) -> dict:
-    """Short or mixed scalefactors for every granule (dsp.py:2735-2830,
-    MPEG-1): per (short band, window) slot sf = clip((ge - pe) // 3, 0, cap),
-    cap 15 for short bands 0-5 and 7 above; mixed granules carry the long
-    head's 8 band scalefactors (cap 15) in slots 0-7 and short bands 3-11."""
+def _switching_sfd_device(
+    spectrum: torch.Tensor, sample_rate: int, mixed: bool, lsf: bool = False
+) -> dict:
+    """Short or mixed scalefactors for every granule (dsp.py:2736-2830): per
+    (short band, window) slot sf = clip((ge - pe) // 3, 0, cap), cap 15 for
+    short bands 0-5 and 7 above; mixed granules carry the long head's band
+    scalefactors (cap 15) in the first slots and short bands 3-11 after
+    them. The head is 8 bands at MPEG-1 and, with the case-0 finisher, the
+    ISO 13818-3 6-band head at LSF rates (lsf)."""
     sb = [int(v) for v in short_band_bounds(sample_rate)]
     lead = spectrum.shape[:-1]
     absx = torch.abs(spectrum)
@@ -1327,10 +1371,12 @@ def _switching_sfd_device(spectrum: torch.Tensor, sample_rate: int, mixed: bool)
     live = gp > 0
     X3 = absx.reshape(*lead, 192, 3)
     parts = []
+    n_head = 6 if lsf else 8
     if mixed:
         lb = _long_bounds(sample_rate)
         pb = torch.stack(
-            [torch.amax(absx[..., int(lb[b]) : int(lb[b + 1])], dim=-1) for b in range(8)], dim=-1
+            [torch.amax(absx[..., int(lb[b]) : int(lb[b + 1])], dim=-1) for b in range(n_head)],
+            dim=-1,
         )
         sf = torch.clamp((ge[..., None] - _exponent(pb)) // 3, 0, 15)
         parts.append(torch.where((pb > 0) & live[..., None], sf, 0))
@@ -1339,8 +1385,12 @@ def _switching_sfd_device(spectrum: torch.Tensor, sample_rate: int, mixed: bool)
         sf = torch.clamp((ge[..., None] - _exponent(pb)) // 3, 0, 15 if s < 6 else 7)
         parts.append(torch.where((pb > 0) & live[..., None], sf, 0))
     sf_slots = _pad_slots(torch.cat(parts, dim=-1).to(_I32))
-    fin = _finish(sf_slots, 17 if mixed else 18, 18)
-    slot_map = _rate_table("slot_maps", sample_rate, spectrum.device)[1 if mixed else 2]
+    if lsf:
+        fin = _finish_slots_lsf_device(sf_slots, LSF_NSF_MIXED if mixed else LSF_NSF_SHORT)
+    else:
+        fin = _finish(sf_slots, 17 if mixed else 18, 18)
+    maps = _rate_table("slot_maps_lsf" if lsf else "slot_maps", sample_rate, spectrum.device)
+    slot_map = maps[1 if mixed else 2]
     return {"sf_slots": sf_slots, "mag_scale": _mag_scale(sf_slots, slot_map), **fin}
 
 
@@ -1350,19 +1400,25 @@ def granule_scalefactors_device(
     block: torch.Tensor,
     psy: bool = False,
     iso_short: bool = False,
+    lsf: bool = False,
 ) -> dict:
-    """Per-granule scalefactors by block type (dsp.py:2833-2903, MPEG-1).
-    spectrum [..., 576] natural order; block [...] int32. Returns sf [..., 21]
-    (long bands; zeros for switching granules, the scfsi input), sf_slots
-    and slot_nbits [..., 36], compress/slen1/slen2/part2 [...] and mag_scale
-    [..., 576]. Without iso_short, switching granules carry no scalefactors."""
+    """Per-granule scalefactors by block type (dsp.py:2833-2903). spectrum
+    [..., 576] natural order; block [...] int32. Returns sf [..., 21] (long
+    bands; zeros for switching granules, the scfsi input), sf_slots and
+    slot_nbits [..., 36], compress/slen1/slen2/part2 [...] and mag_scale
+    [..., 576]. Without iso_short, switching granules carry no scalefactors.
+    lsf: the 9-bit case-0 finisher in place of the MPEG-1 4-bit one (the
+    scalefactor laws are unchanged: the LSF group caps are the MPEG-1 band
+    caps at every slot)."""
     is_long = block == BLOCK_LONG
     law = psy_scalefactors_device if psy else strict_scalefactors_device
     out = law(spectrum, sample_rate, is_long)
+    if lsf:
+        out.update(_finish_slots_lsf_device(out["sf_slots"], LSF_NSF_LONG))
     if not iso_short:
         return out
-    ssfd = _switching_sfd_device(spectrum, sample_rate, mixed=False)
-    msfd = _switching_sfd_device(spectrum, sample_rate, mixed=True)
+    ssfd = _switching_sfd_device(spectrum, sample_rate, mixed=False, lsf=lsf)
+    msfd = _switching_sfd_device(spectrum, sample_rate, mixed=True, lsf=lsf)
     is_mixed = block == BLOCK_MIXED
     for name in ("sf_slots", "slot_nbits", "compress", "slen1", "slen2", "part2", "mag_scale"):
         extra = ssfd[name].dim() - is_long.dim()

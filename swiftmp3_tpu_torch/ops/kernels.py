@@ -364,7 +364,7 @@ def polyphase_chunk_plain(
 
 
 def polyphase_subbands(hist: torch.Tensor, pcm: torch.Tensor) -> torch.Tensor:
-    """K3 alone: the subband samples S [..., 36T, 32] of hist | pcm, without
+    """K3 alone: the subband samples S [..., n/32, 32] of hist | pcm, without
     the concatenated signal. hist: [..., 480]; pcm: [..., n] float32 with n
     a whole number of frames (a multiple of 576: 1152 samples at MPEG-1, 576
     at LSF). A CPU tensor takes the plain version."""
@@ -400,7 +400,8 @@ def polyphase_chunk(
     hist: torch.Tensor, pcm: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The ISO analysis filterbank over a chunk, with the contract of
-    polyphase_chunk_pallas: hist [..., 480], pcm [..., T*1152] ->
-    (S [..., 36T, 32], x = hist | pcm [..., 480 + T*1152]). The kernel
-    computes S; x is concatenated outside it, as the plain version does."""
+    polyphase_chunk_pallas: hist [..., 480], pcm [..., n] with n a multiple
+    of 576 (T frames of 1152 samples at MPEG-1, of 576 at LSF rates) ->
+    (S [..., n/32, 32], x = hist | pcm [..., 480 + n]). The kernel computes
+    S; x is concatenated outside it, as the plain version does."""
     return polyphase_subbands(hist, pcm), torch.cat([hist, pcm], dim=-1)

@@ -212,6 +212,21 @@ def test_dc_is_constant_copies_equal_the_originals(name):
     assert _same(got, want)
 
 
+LSF_COPIES = ["LSF_NSF_LONG", "LSF_NSF_SHORT", "LSF_NSF_MIXED", "LSF_L3_BITRATES"]
+
+
+@pytest.mark.parametrize("name", LSF_COPIES)
+def test_lsf_constant_copies_equal_the_originals(name):
+    """The LSF scalefactor groups (ops/dsp.py) and the MPEG-2 bitrates
+    demand VBR chooses among (models/pipeline.py) against
+    swiftmp3_tpu/ops/reference.py."""
+    from swiftmp3_tpu.ops import reference as jref
+    from swiftmp3_tpu_torch.ops import dsp as tdsp
+
+    got = getattr(tpipe if name == "LSF_L3_BITRATES" else tdsp, name)
+    assert isinstance(got, tuple) and got == getattr(jref, name)
+
+
 VERBATIM = [
     "options.py",
     "streaming.py",

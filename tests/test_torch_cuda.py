@@ -4,7 +4,9 @@ pack input of every hq configuration, the hq flags' included, with frames
 past the cap, and against the host packer on strict frames), the port's
 entry points on a CUDA device against the same entry points on the CPU,
 compat, spec_strict and hq, and the serving pool and reset_lanes on the card
-against sessions on the card.
+against sessions on the card; K1, K2 and K3 on the LSF and free-format
+paths' inputs and odd LSF chunks, and LSF rows on the card with the CPU
+filterbank and MDCT against the JAX bytes.
 
 Every test here needs a CUDA card and skips without one (the kernels have no
 CPU mode). The file imports nothing of JAX and nothing of the JAX package, so
@@ -422,3 +424,83 @@ def test_dc_is_on_the_card_with_the_cpu_filterbank_matches_the_jax_bytes(
     )
     s = new_session(o)
     assert s.encode(pcm) + s.flush() == ref
+
+
+@pytest.mark.parametrize("path", ["lsf strict", "lsf hq", "lsf iso", "free format"])
+def test_kernels_match_plain_on_the_lsf_paths(cuda_device, path):
+    """K2 on the pack input of each LSF and free-format path (P = 936, 1044,
+    576, 2088; caps 444, 460, 444, 982) and on its slots enough times over
+    to pass the cap; K1 on the lsf iso path's sweep input (ISO law)."""
+    from .torch_inputs import path_kernel_inputs
+
+    inputs = path_kernel_inputs(cuda_device, path, B=4, T=5)
+    chunks, nbits, cap = inputs["pack"]
+    reps = max(3, 8 * cap // int(nbits.sum(dim=1).max()) + 1)
+    for c, n in ((chunks, nbits), (torch.cat([chunks] * reps, 1), torch.cat([nbits] * reps, 1))):
+        c, n = c.contiguous(), n.contiguous()
+        by, tot = kernels.pack(c, n, cap)
+        pby, ptot = kernels.pack_plain(c, n, cap)
+        assert torch.equal(by, pby) and torch.equal(tot, ptot)
+    assert (ptot > 8 * cap).any()
+    assert ("rate_sweep" in inputs) == (path == "lsf iso")
+    if path == "lsf iso":
+        mag, gstart, iso = inputs["rate_sweep"]
+        mag, gstart = mag.reshape(-1, 576).contiguous(), gstart.reshape(-1).contiguous()
+        assert iso and gstart.numel() == 4 * 5 * 2
+        bits, bv = kernels.rate_sweep(mag, gstart, iso=True)
+        pb, pv = kernels.rate_sweep_plain(mag, gstart, True)
+        assert torch.equal(bits, pb) and torch.equal(bv, pv)
+
+
+@pytest.mark.parametrize("T", [1, 3, 127])
+def test_polyphase_kernel_matches_plain_at_odd_lsf_chunks(cuda_device, T):
+    """K3 on T frames of 576 samples (18T windows, not a multiple of 4 at
+    odd T) against its plain version and the folded matmul."""
+    rng = np.random.default_rng(T)
+    hist = torch.from_numpy((rng.standard_normal((4, 2, 480)) * 0.2).astype(np.float32)).to(cuda_device)
+    pcm = torch.from_numpy((rng.standard_normal((4, 2, T * 576)) * 0.5).astype(np.float32)).to(cuda_device)
+    S, x = kernels.polyphase_chunk(hist, pcm)
+    S_p, x_p = kernels.polyphase_chunk_plain(hist, pcm)
+    S_m, _ = dsp.polyphase_chunk_matmul(hist, pcm)
+    assert S.shape == (4, 2, 18 * T, 32) and torch.equal(x, x_p)
+    assert float((S - S_p).abs().max()) <= K3_TOLERANCE
+    assert float((S - S_m).abs().max()) <= K3_TOLERANCE
+
+
+@pytest.mark.parametrize("row", ["lsf_strict_mono48_8k_mixed", "lsf_hq_mono48_16k_content",
+                                 "lsf_strict_noshort_joint48_22k_mixed",
+                                 "ff_strict_mono150_44k_noise"])
+def test_lsf_on_the_card_with_the_cpu_filterbank_matches_the_jax_bytes(cuda_device, row, monkeypatch):
+    """An LSF or free-format row on the card keeps the JAX backend's frame
+    structure as a session, and as a batch of 7-frame steps (odd LSF
+    chunks); with the port's CPU filterbank and MDCT in place of the card's
+    (every other op on the card) they give the JAX backend's session bytes
+    and the JAX package's batch bytes at 7 frames a step exactly."""
+    from .torch_inputs import ODD_STEP, jax_path, lsf_row_options, lsf_row_pcm, walk_frames
+
+    o = lsf_row_options(row, MP3EncoderOptions)
+    pcm = lsf_row_pcm(row)
+    free = o.bitrate_kbps if o.free_format else None
+    refs = []
+    for stem in (row, f"{row}_step{ODD_STEP}"):
+        with open(jax_path(stem), "rb") as fh:
+            refs.append(fh.read())
+
+    def both():
+        s = new_session(o)
+        return [s.encode(pcm) + s.flush(), encode_batch(o, [pcm], frames_per_step=ODD_STEP)[0]]
+
+    for data, ref in zip(both(), refs):
+        assert [f["size"] for f in walk_frames(data, free)] == [f["size"] for f in walk_frames(ref, free)]
+    pm, md = dsp.polyphase_chunk_matmul, dsp.mdct_chunk
+    monkeypatch.setattr(
+        dsp, "polyphase_chunk_matmul",
+        lambda h, p: tuple(x.to(h.device) for x in pm(h.cpu(), p.cpu())),
+    )
+    monkeypatch.setattr(
+        dsp, "mdct_chunk",
+        lambda S, ov, bt, *a, **k: tuple(
+            x.to(S.device) for x in md(S.cpu(), ov.cpu(), bt.cpu(), *a, **k)
+        ),
+    )
+    assert both() == refs

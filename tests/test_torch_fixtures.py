@@ -116,6 +116,9 @@ def test_golden_inputs_cover_the_frozen_files():
     for preset in ti.DC_IS_OPTIONS:
         for stem in ti.dc_is_streams(preset):
             want += [ti.golden_path(stem, preset), ti.jax_path(f"{preset}_{stem}")]
+    want += [ti.jax_path(row) for row in (*ti.LSF_ROWS, *ti.FF_ROWS)]
+    want += [ti.jax_path(f"{row}_step{ti.ODD_STEP}") for row in (*ti.LSF_ROWS, *ti.FF_ROWS)]
+    want += [ti.checkpoint_path(side, ti.LSF_CHECKPOINT[0]) for side in ("jax", "port")]
     assert frozen == sorted(os.path.basename(p) for p in want)
 
 

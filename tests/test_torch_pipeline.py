@@ -4,7 +4,8 @@ JAX package (CPU).
 - the chunk program against jax.jit(pipeline.make_chunk_fn): every
   fetch_outputs field exact, the carry within float tolerance;
 - the 8 compat fixture rows byte-equal to the JAX backend's streams;
-- drip-feed, batch and checkpoint invariances; unsupported options raise;
+- drip-feed, batch and checkpoint invariances; LSF and free format build
+  and encode through new_session and BatchEncoder;
 - importing the port loads neither jax nor the JAX package.
 
 Each package builds its own MP3EncoderOptions from the same keyword
@@ -31,6 +32,7 @@ from swiftmp3_tpu_torch.parallel import batch as tbatch
 from swiftmp3_tpu_torch.parallel.batch import BatchEncoder, encode_batch
 
 from .test_ulp_telemetry import _corpus_stereo
+from . import torch_inputs as ti
 from .torch_inputs import COMPAT_FIXTURES, fixture_path, make_signal
 from .util import parse_frames
 
@@ -257,25 +259,33 @@ def test_carry_from_jax_conversions():
         tpipe.carry_from_jax(tpipe.carry_to_jax(seq), CPU, MP3EncoderOptions(mode="stereo"))
 
 
-# Each case is a flag the port does not run yet, at a configuration where the
-# reference's chunk program reads it, and the ROADMAP Queue 1 item named in
-# the error. "hq" builds the options with MP3EncoderOptions.hq.
+# The options ROADMAP Queue 1 item 11 brought, at the configurations where
+# the port raised before it: free format at an off-table rate, and an LSF
+# rate on the non-strict chunk program (ISO quantization, the aligned
+# reservoir).
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(free_format=True, bitrate_kbps=100, item=11),
-        dict(sample_rate=22050, iso_quantization=True, reservoir_mode="aligned", item=11),
+        dict(free_format=True, bitrate_kbps=100),
+        dict(sample_rate=22050, iso_quantization=True, reservoir_mode="aligned"),
     ],
-    ids=lambda kw: ",".join(k for k in kw if k != "item"),
+    ids=lambda kw: ",".join(kw),
 )
-def test_unsupported_options_raise(kw):
-    kw = dict(kw)
-    item = kw.pop("item")
-    o = MP3EncoderOptions.hq(**kw) if kw.pop("hq", False) else MP3EncoderOptions(**kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}\\)"):
-        new_session(o, CPU)
-    with pytest.raises(NotImplementedError):
-        BatchEncoder(o, 2, 4, CPU)
+def test_lsf_and_free_format_build_and_encode(kw):
+    """Both build and encode frames through new_session and BatchEncoder on
+    the CPU, to the same bytes: LSF frames of 576 samples, free-format
+    frames with header index 0."""
+    o = MP3EncoderOptions(mode="stereo", **kw)
+    pcm = make_signal("mix", 0.2, o.sample_rate, o.channels, 6)
+    s = new_session(o, CPU)
+    data = s.encode(pcm) + s.flush()
+    frames = ti.walk_frames(data, o.bitrate_kbps if o.free_format else None)
+    assert len(frames) >= 4
+    if o.free_format:
+        assert {f["bitrate_index"] for f in frames} == {0}
+    else:
+        assert {(f["version"], f["samples"]) for f in frames} == {("2", 576)}
+    assert encode_batch(o, [pcm], CPU, frames_per_step=4) == [data]  # a BatchEncoder
 
 
 # The flags ROADMAP Queue 1 items 9 and 10 brought, at the configurations
@@ -333,12 +343,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_hq_preset_raises():
-    """The hq preset runs at 128 kbps and, with its rate-derived adaptive
-    lowpass, at 96 kbps; at an LSF rate it raises item 11."""
+    """The hq preset builds at 128 kbps, with its rate-derived adaptive
+    lowpass at 96 kbps, and (ROADMAP Queue 1 item 11) at an LSF rate, where
+    it raised before: nothing of it raises any more."""
     tpipe.make_chunk_fn(MP3EncoderOptions.hq())
     tpipe.make_chunk_fn(MP3EncoderOptions.hq(bitrate_kbps=96))
-    with pytest.raises(NotImplementedError, match="LSF sample rates .* item 11"):
-        tpipe.make_chunk_fn(MP3EncoderOptions.hq(mode="mono", sample_rate=22050, bitrate_kbps=64))
+    o = MP3EncoderOptions.hq(mode="mono", sample_rate=22050, bitrate_kbps=64)
+    assert o.lsf and o.window_sequencing
+    tpipe.make_chunk_fn(o)
 
 
 def test_import_loads_no_jax():

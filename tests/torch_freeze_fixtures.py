@@ -5,8 +5,8 @@ hold it to.
 
 Run once on the CPU, from the repository root; no test runs it (it compiles
 JAX hq chunk programs, which the fast tier never does). The parts are hq,
-strict, checkpoint, flags, depth_checkpoint, corpus, cli, dc and is (all
-when none is named). It writes under tests/fixtures/torch/:
+strict, checkpoint, flags, depth_checkpoint, corpus, cli, dc, is, lsf and ff
+(all when none is named). It writes under tests/fixtures/torch/:
 
 - golden_<preset>_<stem>.mp3: the golden numpy backend's streams under each
   hq configuration (tests/torch_inputs.HQ_OPTIONS) for the hq fixture rows
@@ -28,7 +28,13 @@ when none is named). It writes under tests/fixtures/torch/:
   WAV of torch_inputs.cli_pcm();
 - golden_<preset>_<stem>.mp3 and jax_<preset>_<stem>.mp3 for each preset of
   torch_inputs.DC_IS_OPTIONS on torch_inputs.dc_is_streams(preset): part dc
-  (distortion control), part is (intensity stereo).
+  (distortion control), part is (intensity stereo);
+- jax_<row>.mp3 for each row of torch_inputs.LSF_ROWS (part lsf) and
+  torch_inputs.FF_ROWS (part ff), jax_<row>_step7.mp3 the JAX package's
+  encode_batch bytes of the row at torch_inputs.ODD_STEP frames a step, and
+  with part lsf checkpoint_jax_<row>.npz
+  and checkpoint_port_<row>.npz in the middle of torch_inputs.LSF_CHECKPOINT's
+  row, checked as above.
 
 It prints, for every frozen JAX stream, how many frames the port's CPU
 session encodes differently (the port's tests hold it to these files).
@@ -48,13 +54,13 @@ from swiftmp3_tpu.encoder import EncoderSession
 from swiftmp3_tpu.options import ID3Tag as JaxID3Tag
 from swiftmp3_tpu.options import MP3EncoderOptions as JaxOptions
 from swiftmp3_tpu.options import Mode
-from swiftmp3_tpu.parallel import encode_corpus
+from swiftmp3_tpu.parallel import encode_batch, encode_corpus
 from swiftmp3_tpu.utils.wav import write_wav
 from swiftmp3_tpu_torch.encoder import new_session
 from swiftmp3_tpu_torch.options import MP3EncoderOptions
+from swiftmp3_tpu_torch.parallel import encode_batch as encode_batch_port
 
 from . import torch_inputs as ti
-from .util import parse_frames
 
 
 def hq_options(preset: str):
@@ -78,12 +84,12 @@ def encode(session, pcm) -> bytes:
     return session.encode(pcm) + session.flush()
 
 
-def frame_flips(got: bytes, ref: bytes) -> str:
-    fg, fr = parse_frames(got), parse_frames(ref)
-    if [f.size for f in fg] != [f.size for f in fr]:
+def frame_flips(got: bytes, ref: bytes, free_kbps: int | None = None) -> str:
+    fg, fr = ti.walk_frames(got, free_kbps), ti.walk_frames(ref, free_kbps)
+    if [f["size"] for f in fg] != [f["size"] for f in fr]:
         return "structure differs"
     bad = [i for i, (a, b) in enumerate(zip(fg, fr))
-           if got[a.offset : a.offset + a.size] != ref[b.offset : b.offset + b.size]]
+           if got[a["offset"] : a["offset"] + a["size"]] != ref[b["offset"] : b["offset"] + b["size"]]]
     return f"{len(bad)}/{len(fr)} frames differ (first {bad[:1]})"
 
 
@@ -95,9 +101,13 @@ def write(path: str, data: bytes) -> None:
 
 def freeze_checkpoints(checkpoint=ti.HQ_CHECKPOINT, streams=ti.hq_streams) -> None:
     stem, preset, cut = checkpoint
-    o, jo = hq_options(preset)
-    pcm = streams()[stem]
-    with open(ti.jax_path(f"{preset}_{stem}"), "rb") as fh:
+    freeze_checkpoint(*hq_options(preset), streams()[stem], f"{preset}_{stem}", cut, preset)
+
+
+def freeze_checkpoint(o, jo, pcm, whole_stem: str, cut: int, name: str) -> None:
+    """Both packages' session checkpoints at sample `cut` of pcm, whose JAX
+    stream is frozen as jax_<whole_stem>.mp3, as checkpoint_<side>_<name>.npz."""
+    with open(ti.jax_path(whole_stem), "rb") as fh:
         whole = fh.read()
     js = EncoderSession(jo, backend="tpu")
     head = js.encode(pcm[:cut])
@@ -113,7 +123,7 @@ def freeze_checkpoints(checkpoint=ti.HQ_CHECKPOINT, streams=ti.hq_streams) -> No
         "the JAX backend resumed from the port's checkpoint differs from the unbroken stream"
     )
     for side, state in (("jax", jax_state), ("port", port_state)):
-        path = ti.checkpoint_path(side, preset)
+        path = ti.checkpoint_path(side, name)
         ti.save_session_state(path, state, head_len=len(head))
         print(f"wrote {os.path.relpath(path)}", flush=True)
 
@@ -136,6 +146,32 @@ def freeze_strict() -> None:
         ref = encode(EncoderSession(jo, backend="tpu"), pcm)
         write(ti.jax_path(name), ref)
         print(f"  port: {frame_flips(encode(new_session(o, 'cpu'), pcm), ref)}", flush=True)
+
+
+def freeze_rows(rows) -> None:
+    """The JAX backend's bytes of each row of LSF_ROWS or FF_ROWS."""
+    for row in rows:
+        o = ti.lsf_row_options(row, MP3EncoderOptions)
+        jo = ti.lsf_row_options(row, JaxOptions, Mode)
+        pcm = ti.lsf_row_pcm(row)
+        ref = encode(EncoderSession(jo, backend="tpu"), pcm)
+        write(ti.jax_path(row), ref)
+        free = o.bitrate_kbps if o.free_format else None
+        print(f"  port: {frame_flips(encode(new_session(o, 'cpu'), pcm), ref, free)}", flush=True)
+        odd = encode_batch(jo, [pcm], frames_per_step=ti.ODD_STEP)[0]
+        write(ti.jax_path(f"{row}_step{ti.ODD_STEP}"), odd)
+        port_odd = encode_batch_port(o, [pcm], "cpu", frames_per_step=ti.ODD_STEP)[0]
+        print(f"  vs the session: {frame_flips(odd, ref, free)}; port: "
+              f"{frame_flips(port_odd, odd, free)}", flush=True)
+
+
+def freeze_lsf() -> None:
+    freeze_rows(ti.LSF_ROWS)
+    row, cut = ti.LSF_CHECKPOINT
+    freeze_checkpoint(
+        ti.lsf_row_options(row, MP3EncoderOptions), ti.lsf_row_options(row, JaxOptions, Mode),
+        ti.lsf_row_pcm(row), row, cut, row,
+    )
 
 
 def freeze_corpus() -> None:
@@ -168,6 +204,8 @@ PARTS = {
     "cli": freeze_cli,
     "dc": lambda: freeze_presets(["hq_dc_mono128", "hq_dc3p_mono128"], ti.dc_is_streams),
     "is": lambda: freeze_presets(["hq_is_32k", "strict_is_32k"], ti.dc_is_streams),
+    "lsf": freeze_lsf,
+    "ff": lambda: freeze_rows(ti.FF_ROWS),
 }
 
 

@@ -61,16 +61,48 @@ def pack_input(F: int, P: int, cap: int, seed: int = 7, overflow: bool = False):
     return ch, nb
 
 
+def chunk_kernel_inputs(options, device, frames: np.ndarray, la: np.ndarray = None) -> dict:
+    """Run one chunk of the port's chunk program on `device` from a fresh
+    carry (frames [B, T, spf*ch], la its lookahead or None) and return the
+    first call's inputs of each kernel wrapper it reaches: {"pack":
+    (chunks, nbits, cap), "rate_sweep": (mag, gstart, iso)}."""
+    import torch
+
+    from swiftmp3_tpu_torch.models import pipeline
+    from swiftmp3_tpu_torch.ops import kernels
+
+    B, T = frames.shape[:2]
+    seen = {}
+    pack, sweep = kernels.pack, kernels.rate_sweep
+
+    def record_pack(chunks, nbits, cap):
+        seen.setdefault("pack", (chunks.clone(), nbits.clone(), cap))
+        return pack(chunks, nbits, cap)
+
+    def record_sweep(mag, gstart, iso=False):
+        seen.setdefault("rate_sweep", (mag.clone(), gstart.clone(), iso))
+        return sweep(mag, gstart, iso=iso)
+
+    kernels.pack, kernels.rate_sweep = record_pack, record_sweep
+    try:
+        pipeline.make_chunk_fn(options)(
+            pipeline.init_carry(B, options, device),
+            torch.from_numpy(frames).to(device),
+            torch.zeros((B, T), dtype=torch.bool, device=device),
+            torch.ones((B, T), dtype=torch.bool, device=device),
+            None if la is None else torch.from_numpy(la).to(device),
+        )
+    finally:
+        kernels.pack, kernels.rate_sweep = pack, sweep
+    return seen
+
+
 def strict_pack_input(device, B: int = 2, T: int = 2, seed: int = 0, mode: str = "joint_stereo"):
     """The main_data pack's input on the strict path: the (chunks, nbits)
     [B*T, P] the port's spec_strict chunk program hands `kernels.pack`
     (36 scalefactor slots, 288 pair and 144 quad slots a granule, so
     P = 1872 in stereo and 936 in mono), and the cap, for B streams of T
     frames of correlated noise with attacks on `device`."""
-    import torch
-
-    from swiftmp3_tpu_torch.models import pipeline
-    from swiftmp3_tpu_torch.ops import kernels
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
 
     o = MP3EncoderOptions.spec_strict(**dict(STRICT_OPTIONS, mode=mode))
@@ -79,24 +111,7 @@ def strict_pack_input(device, B: int = 2, T: int = 2, seed: int = 0, mode: str =
     for i in range(1, 5):
         x[:, i:] += x[:, :-i] / (i + 1)
     x[:, 700:800] *= 20.0  # attacks: short granules and their scalefactors
-    seen = []
-    pack = kernels.pack
-
-    def record(chunks, nbits, cap):
-        seen.append((chunks.clone(), nbits.clone(), cap))
-        return pack(chunks, nbits, cap)
-
-    kernels.pack = record
-    try:
-        pipeline.make_chunk_fn(o)(
-            pipeline.init_carry(B, o, device),
-            torch.from_numpy(x.reshape(B, T, -1)).to(device),
-            torch.zeros((B, T), dtype=torch.bool, device=device),
-            torch.ones((B, T), dtype=torch.bool, device=device),
-        )
-    finally:
-        kernels.pack = pack
-    return seen[0]
+    return chunk_kernel_inputs(o, device, x.reshape(B, T, -1))["pack"]
 
 
 def hq_pack_input(
@@ -110,10 +125,6 @@ def hq_pack_input(
     (each frame's lookahead the next frame's first granule), under the hq
     configuration `preset` of HQ_OPTIONS, HQ_FLAG_OPTIONS or DC_IS_OPTIONS
     (its mode replaced by `mode`, if given)."""
-    import torch
-
-    from swiftmp3_tpu_torch.models import pipeline
-    from swiftmp3_tpu_torch.ops import kernels
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
 
     if preset in DC_IS_OPTIONS:
@@ -129,25 +140,7 @@ def hq_pack_input(
     x[:, 700:800] *= 3.0  # attacks: short granules and their scalefactors
     frames = x[:, : T * n].reshape(B, T, n)
     la = np.stack([x[:, (t + 1) * n : (t + 1) * n + n // 2] for t in range(T)], axis=1)
-    seen = []
-    pack = kernels.pack
-
-    def record(chunks, nbits, cap):
-        seen.append((chunks.clone(), nbits.clone(), cap))
-        return pack(chunks, nbits, cap)
-
-    kernels.pack = record
-    try:
-        pipeline.make_chunk_fn(o)(
-            pipeline.init_carry(B, o, device),
-            torch.from_numpy(frames).to(device),
-            torch.zeros((B, T), dtype=torch.bool, device=device),
-            torch.ones((B, T), dtype=torch.bool, device=device),
-            torch.from_numpy(la).to(device),
-        )
-    finally:
-        kernels.pack = pack
-    return seen[0]
+    return chunk_kernel_inputs(o, device, frames, la)["pack"]
 
 
 def step_lookahead(audio: list, k: int, channels: int) -> np.ndarray:
@@ -634,21 +627,24 @@ def corpus_stereo() -> dict:
     }
 
 
-def bench_audio(rng, B: int, T: int, channels: int, sample_rate: int) -> np.ndarray:
-    """Speech/music-like correlated audio, int16 interleaved [B, T, 1152*ch];
-    unique content per call (the generator of bench.py)."""
-    t_ax = np.arange(T * 1152) / sample_rate
+def bench_audio(
+    rng, B: int, T: int, channels: int, sample_rate: int, spf: int = 1152
+) -> np.ndarray:
+    """Speech/music-like correlated audio, int16 interleaved [B, T, spf*ch]
+    (spf samples a frame: 1152, or 576 at LSF rates); unique content per
+    call (the generator of bench.py)."""
+    t_ax = np.arange(T * spf) / sample_rate
     base = sum(
         a * np.sin(2 * np.pi * f * t_ax)
         for a, f in [(0.35, 220.0), (0.2, 467.0), (0.1, 1313.0)]
     )
-    ar = rng.standard_normal((B, T * 1152)).astype(np.float32)
+    ar = rng.standard_normal((B, T * spf)).astype(np.float32)
     for i in range(1, 8):
         ar[:, i:] += ar[:, :-i] / (i + 1)
     ar *= 0.05 / np.abs(ar).max()
     sig = (base[None, :] * rng.uniform(0.5, 1.0, (B, 1)) + ar).astype(np.float32)
     mono = (np.clip(sig, -0.99, 0.99) * 32767).astype(np.int16)
-    return np.repeat(mono[..., None], channels, axis=-1).reshape(B, T, 1152 * channels)
+    return np.repeat(mono[..., None], channels, axis=-1).reshape(B, T, spf * channels)
 
 
 def panned_audio(rng, B: int, T: int, sample_rate: int = 44100) -> np.ndarray:
@@ -697,3 +693,207 @@ def golden_path(stem: str, preset: str = "compat") -> str:
     MP3EncoderOptions.hq(**HQ_OPTIONS[preset]) ("hq_joint", "hq_stereo")."""
     prefix = "golden_" if preset == "compat" else f"golden_{preset}_"
     return os.path.join(TORCH_FIXTURE_DIR, f"{prefix}{stem}.mp3")
+
+
+# --- LSF sample rates and free format (ROADMAP Queue 1 item 11) ---------------
+
+# The JAX backend's frozen bytes of each row: {row: (factory, kwargs, signal)}
+# (jax_<row>.mp3). factory "spec_strict"/"hq" builds the options with
+# MP3EncoderOptions.<factory>(**kwargs), None with MP3EncoderOptions(**kwargs);
+# signal names a maker below and its arguments. The LSF rows: the JAX
+# package's device-parity rows of tests/test_lsf_encode.py (spec_strict joint
+# stereo 64 kbps at 22.05 kHz on its burst input, hq mono 48 kbps at 16 kHz),
+# hq joint stereo 80 kbps at 24 kHz (its adaptive 10 kHz lowpass engages),
+# spec_strict mono 48 kbps at 8 kHz (MPEG-2.5) on mixed-block content, demand
+# VBR at quality 3, joint stereo without iso_short_blocks on mixed-block
+# content (mixed granules demoted to short), and the non-strict program under
+# the ISO law (the LSF path of the rate-sweep kernel).
+LSF_ROWS = {
+    "lsf_strict_joint64_22k_burst": (
+        "spec_strict", dict(mode="joint_stereo", bitrate_kbps=64, sample_rate=22050),
+        ("lsf_burst", 11)),
+    "lsf_hq_mono48_16k_content": (
+        "hq", dict(mode="mono", bitrate_kbps=48, sample_rate=16000), ("lsf_content", 1.0, 3)),
+    "lsf_hq_joint80_24k_content": (
+        "hq", dict(mode="joint_stereo", bitrate_kbps=80, sample_rate=24000),
+        ("lsf_content", 0.75, 5)),
+    "lsf_strict_mono48_8k_mixed": (
+        "spec_strict", dict(mode="mono", bitrate_kbps=48, sample_rate=8000),
+        ("lsf_mixed_content", 30, 3)),
+    "lsf_strict_noshort_joint48_22k_mixed": (
+        "spec_strict", dict(mode="joint_stereo", bitrate_kbps=48, sample_rate=22050,
+                            iso_short_blocks=False), ("lsf_mixed_content", 30, 3)),
+    "lsf_strict_vbr_q3_22k_content": (
+        "spec_strict", dict(mode="joint_stereo", bitrate_kbps=64, sample_rate=22050, vbr=True,
+                            vbr_demand=True, quality=3), ("lsf_content", 1.1, 3)),
+    "lsf_iso_stereo64_22k_burst": (
+        None, dict(mode="stereo", bitrate_kbps=64, sample_rate=22050, iso_quantization=True,
+                   reservoir_mode="aligned"), ("lsf_burst", 12)),
+}
+# Free format: tests/test_freeformat.py's rows, mono 150 kbps (an off-table
+# rate) with linbits at 44.1 kHz, on noise.
+FF_ROWS = {
+    "ff_strict_mono150_44k_noise": (
+        "spec_strict", dict(mode="mono", bitrate_kbps=150, sample_rate=44100, free_format=True,
+                            linbits_tables=True), ("ff_noise", 6, 5)),
+}
+# The LSF and free-format paths chip_smoke.py drives at full width (B_MAIN x
+# T_MAIN, free format one step) and tools/torch_profile_step.py --lsf
+# profiles: {path: (factory, kwargs)}. spec_strict joint stereo 64 kbps at
+# 22.05 kHz and hq mono 48 kbps at 16 kHz (the JAX package's device-parity
+# rows), the non-strict program at 22.05 kHz under the ISO law (the only LSF
+# path of the rate-sweep kernel), and free format at 150 kbps.
+LSF_PATHS = {
+    "lsf strict": ("spec_strict", dict(mode="joint_stereo", bitrate_kbps=64, sample_rate=22050)),
+    "lsf hq": ("hq", dict(mode="mono", bitrate_kbps=48, sample_rate=16000)),
+    "lsf iso": (None, dict(mode="stereo", bitrate_kbps=64, sample_rate=22050,
+                           iso_quantization=True, reservoir_mode="aligned")),
+    "free format": ("spec_strict", dict(mode="mono", bitrate_kbps=150, sample_rate=44100,
+                                        free_format=True, linbits_tables=True)),
+}
+# Steps of an odd number of frames: each row's JAX bytes are also frozen as
+# the JAX package's encode_batch gives them at ODD_STEP frames a step
+# (jax_<row>_step7.mp3). At LSF rates a frame is 18 filterbank windows, so a
+# chunk of an odd number of frames moves the next chunk's frames to the
+# other half of the folded filterbank's 4-window rows, another float order.
+ODD_STEP = 7
+# A checkpoint in the middle of the hq LSF row (tests/test_lsf_encode.py's
+# cut): the row and the sample at which its stream is cut.
+LSF_CHECKPOINT = ("lsf_hq_mono48_16k_content", 576 * 9 + 77)
+
+
+def lsf_burst(channels: int, seed: int) -> np.ndarray:
+    """Copy of the input of tests/test_lsf_encode.test_lsf_device_backend_byte_equality:
+    13 frames and 200 samples of quiet noise with loud noise bursts every
+    4000 samples, interleaved float32."""
+    rng = np.random.default_rng(seed)
+    n = (576 * 13 + 200) * channels
+    pcm = (0.02 * rng.standard_normal(n)).astype(np.float32)
+    for c in range(1500, n - 600, 4000):
+        pcm[c : c + 350] += (0.5 * rng.standard_normal(350)).astype(np.float32)
+    return np.clip(pcm, -1, 1)
+
+
+def lsf_content(sr: int, seconds: float, channels: int, seed: int) -> np.ndarray:
+    """Copy of tests/test_lsf_encode._content: a tonal bed with noise and
+    one hard burst, the right channel the left delayed by 5 samples at 0.8;
+    interleaved float32."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    t = np.arange(n, dtype=np.float32) / sr
+    base = (
+        0.35 * np.sin(2 * np.pi * 330.0 * t)
+        + 0.1 * np.sin(2 * np.pi * 997.0 * t)
+        + 0.04 * rng.standard_normal(n)
+    ).astype(np.float32)
+    c = n // 2
+    base[c : c + 400] += (0.45 * rng.standard_normal(400)).astype(np.float32)
+    if channels == 1:
+        return base
+    return np.stack([base, np.roll(base, 5) * 0.8], axis=1).astype(np.float32).reshape(-1)
+
+
+def lsf_mixed_content(sr: int, n_frames: int, seed: int, channels: int = 1) -> np.ndarray:
+    """Copy of tests/test_lsf_encode._mixed_content: a tone with noise
+    attacks at granule starts (the MIXED verdict), mono float32; in stereo
+    the right channel the left delayed 3 samples at 0.7, interleaved."""
+    rng = np.random.default_rng(seed)
+    n = 576 * n_frames
+    t = np.arange(n) / sr
+    pcm = (0.25 * np.sin(2 * np.pi * 400.0 * t)).astype(np.float32)
+    for k in range(576 * 4, n - 600, 576 * 5):
+        pcm[k : k + 120] += (rng.standard_normal(120) * 0.55).astype(np.float32)
+    if channels == 1:
+        return pcm
+    return np.stack([pcm, np.roll(pcm, 3) * np.float32(0.7)], axis=1).reshape(-1)
+
+
+def ff_noise(n_frames: int, seed: int) -> np.ndarray:
+    """Copy of the input of tests/test_freeformat.test_free_format_encode_backends_byte_equal."""
+    rng = np.random.default_rng(seed)
+    return (0.3 * rng.standard_normal(n_frames * 1152)).astype(np.float32)
+
+
+def build_options(factory, kw: dict, options_cls, mode_cls=str):
+    """MP3EncoderOptions.<factory>(**kw), or MP3EncoderOptions(**kw) when
+    factory is None, of either package (mode_cls: that package's Mode, or
+    str for the port)."""
+    kw = dict(kw, mode=mode_cls(kw["mode"]))
+    return getattr(options_cls, factory)(**kw) if factory else options_cls(**kw)
+
+
+def lsf_row_options(row: str, options_cls, mode_cls=str):
+    """The options of a row of LSF_ROWS or FF_ROWS, built by either package's
+    MP3EncoderOptions."""
+    factory, kw, _ = {**LSF_ROWS, **FF_ROWS}[row]
+    return build_options(factory, kw, options_cls, mode_cls)
+
+
+def path_kernel_inputs(device, path: str, B: int = 2, T: int = 2, seed: int = 0) -> dict:
+    """The kernels' inputs on a path of LSF_PATHS (chunk_kernel_inputs: the
+    pack's, and the rate sweep's on the path that sweeps) for B streams of
+    T frames of the bench audio (each frame's lookahead the next frame's
+    granule) on `device`."""
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+
+    o = build_options(*LSF_PATHS[path], MP3EncoderOptions)
+    audio = [bench_audio(np.random.default_rng(seed), B, T, o.channels, o.sample_rate,
+                         o.samples_per_frame) for _ in range(2)]
+    return chunk_kernel_inputs(o, device, audio[0], step_lookahead(audio, 0, o.channels))
+
+
+def lsf_row_pcm(row: str) -> np.ndarray:
+    """The input of a row of LSF_ROWS or FF_ROWS."""
+    factory, kw, (maker, *args) = {**LSF_ROWS, **FF_ROWS}[row]
+    channels = 1 if kw["mode"] == "mono" else 2
+    if maker == "lsf_burst":
+        return lsf_burst(channels, *args)
+    if maker == "lsf_content":
+        return lsf_content(kw["sample_rate"], args[0], channels, args[1])
+    if maker == "lsf_mixed_content":
+        return lsf_mixed_content(kw["sample_rate"], *args, channels)
+    return ff_noise(*args)
+
+
+# Frame walk of MPEG-1, MPEG-2 and MPEG-2.5 Layer III streams (numpy only;
+# tests/util.parse_frames reads MPEG-1 alone).
+_BITRATES_V1 = (0, 32, 40, 48, 56, 64, 80, 96, 112, 128, 160, 192, 224, 256, 320, 0)
+_BITRATES_V2 = (0, 8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128, 144, 160, 0)
+# header version bits -> (version name, sample rates by index)
+_VERSIONS = {3: ("1", (44100, 48000, 32000)), 2: ("2", (22050, 24000, 16000)),
+             0: ("2.5", (11025, 12000, 8000))}
+
+
+def walk_frames(data: bytes, free_kbps: int | None = None) -> list[dict]:
+    """The frames of a contiguous Layer III stream of any version: per frame
+    its offset, size, version ("1", "2", "2.5"), bitrate_index, bitrate_kbps,
+    sample_rate, padding, mode, mode_extension and samples (1152, or 576 at
+    LSF rates). Free-format frames (index 0) take their size from
+    free_kbps, the stream's exact rate. Raises on a bad header, a gap or
+    trailing bytes."""
+    frames = []
+    i = 0
+    while i + 4 <= len(data):
+        b = data[i : i + 4]
+        if not (b[0] == 0xFF and (b[1] & 0xE0) == 0xE0 and (b[1] >> 1) & 3 == 1):
+            raise ValueError(f"bad Layer III sync at byte {i}")
+        version, rates = _VERSIONS[(b[1] >> 3) & 3]
+        lsf = version != "1"
+        index = b[2] >> 4
+        sr = rates[(b[2] >> 2) & 3]
+        if index == 0:
+            if free_kbps is None:
+                raise ValueError(f"free-format frame at byte {i} and no free_kbps")
+            kbps = free_kbps
+        else:
+            kbps = (_BITRATES_V2 if lsf else _BITRATES_V1)[index]
+        padding = (b[2] >> 1) & 1
+        size = ((72 if lsf else 144) * kbps * 1000) // sr + padding
+        frames.append(dict(offset=i, size=size, version=version, bitrate_index=index,
+                           bitrate_kbps=kbps, sample_rate=sr, padding=padding,
+                           mode=b[3] >> 6, mode_extension=(b[3] >> 4) & 3,
+                           samples=576 if lsf else 1152))
+        i += size
+    if i != len(data):
+        raise ValueError(f"trailing bytes: walked {i} of {len(data)}")
+    return frames

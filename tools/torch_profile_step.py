@@ -6,6 +6,9 @@
     python3 tools/torch_profile_step.py --hq       # the hq path
     python3 tools/torch_profile_step.py --dc       # hq mono 128 kbps, distortion control
     python3 tools/torch_profile_step.py --is       # hq joint stereo 32 kbps, intensity stereo
+    python3 tools/torch_profile_step.py --lsf      # 22.05 kHz, ISO law (the LSF K1 path)
+    python3 tools/torch_profile_step.py --lsf --strict  # spec_strict joint stereo 64 kbps, 22.05 kHz
+    python3 tools/torch_profile_step.py --lsf --hq      # hq mono 48 kbps, 16 kHz
 
 Runs the port's BatchEncoder at the main path's shape (256 streams x 128
 frames, bench audio; 128 kbps CBR stereo 44.1 kHz, or with --strict
@@ -14,7 +17,9 @@ MP3EncoderOptions.spec_strict(joint stereo, 128 kbps, 44.1 kHz), or with
 lookahead granule built as bench.py builds it; with --dc the hq preset's
 distortion control in mono at 128 kbps on the bench audio's left channel,
 with --is its intensity stereo in joint stereo at 32 kbps on panned two-tone
-audio, tests/torch_inputs.DC_IS_OPTIONS) for two warm-up steps, then:
+audio, tests/torch_inputs.DC_IS_OPTIONS; with --lsf the LSF path of the
+same program, tests/torch_inputs.LSF_PATHS, on 128 frames of 576 samples of
+bench audio at its rate) for two warm-up steps, then:
 
   1. phase wall times of one step, with a device synchronise at each phase
      boundary. Compat: phase 1 up to and including the rate sweep, the
@@ -179,10 +184,12 @@ def main(argv=None) -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 2
     args = sys.argv[1:] if argv is None else argv
-    dc, intensity = "--dc" in args, "--is" in args
+    dc, intensity, lsf = "--dc" in args, "--is" in args, "--lsf" in args
     hq = "--hq" in args or dc or intensity
     strict = hq or "--strict" in args
     name = "hq dc" if dc else "hq is" if intensity else "hq" if hq else "strict" if strict else "compat"
+    if lsf:
+        name = "lsf hq" if hq else "lsf strict" if strict else "lsf iso"
 
     from swiftmp3_tpu_torch.ops import dsp
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
@@ -191,9 +198,11 @@ def main(argv=None) -> int:
     from tests.torch_inputs import T_MAIN as T
     from tests.torch_inputs import (
         HQ_OPTIONS,
+        LSF_PATHS,
         MAIN_OPTIONS,
         STRICT_OPTIONS,
         bench_audio,
+        build_options,
         dc_is_options,
         panned_audio,
         step_lookahead,
@@ -203,7 +212,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    if dc:
+    if lsf:
+        opts = build_options(*LSF_PATHS[name], MP3EncoderOptions)
+    elif dc:
         opts = dc_is_options("hq_dc_mono128", MP3EncoderOptions)
     elif intensity:
         opts = dc_is_options("hq_is_32k", MP3EncoderOptions)
@@ -217,7 +228,7 @@ def main(argv=None) -> int:
     if intensity:
         audio = [panned_audio(rng, B, T, opts.sample_rate) for _ in range(4)]
     else:
-        audio = [bench_audio(rng, B, T, 2, opts.sample_rate) for _ in range(4)]
+        audio = [bench_audio(rng, B, T, 2, opts.sample_rate, opts.samples_per_frame) for _ in range(4)]
     if opts.channels == 1:  # the bench audio is dual mono
         audio = [a[..., 0::2].copy() for a in audio]
     final = np.zeros((B, T), bool)
@@ -225,7 +236,7 @@ def main(argv=None) -> int:
     enc = BatchEncoder(opts, B, T)
 
     def step(k):
-        la = step_lookahead(audio, k, opts.channels) if hq else None
+        la = step_lookahead(audio, k, opts.channels) if opts.window_sequencing else None
         return enc.step(audio[k], final, valid, la)
 
     try:
@@ -314,7 +325,7 @@ def main(argv=None) -> int:
           f"({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of the step), {card}", flush=True)
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=25))
 
-    if not strict:
+    if not (strict or lsf):
         # 4. the filterbank stage on the profiled step's chunk
         fb = filterbank_stage(hist, filterbank_input(audio[3], "cuda"))
         print(f"[filterbank] {B * 2} rows x T={T} ({36 * T} windows), {card}: "
