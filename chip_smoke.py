@@ -116,7 +116,16 @@ reference streams are committed files). Phases:
 Each kernel's bound_ms is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its lane operations over 33.5 T/s (the
 67 TFLOP/s of fp32 outside the tensor cores, an FMA counting as one lane
-operation), the H100 SXM's published peaks, from this run's shapes.
+operation), the H100 SXM's published peaks, from this run's shapes. K1 and
+K2 are read three ways at each shape they are checked at: `ms`, CUDA events
+around 20 back-to-back wrapper calls; `device_ms`, CUDA events around a CUDA
+graph of the same 20 launches (the kernel alone, without the wrapper's host
+work); `host_us`, the wrapper's host time a call. Each line gives the share
+of the bound both ways. K2's bound counts the chunks of live slots only (a
+dead slot's chunk is not needed, and the kernel does not read it); its lines
+also print the time to move every input byte, the measure the earlier K2
+kernel was read against, which the kernel beats where most slots are dead
+and so is not a bound.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -232,6 +241,28 @@ def _bound(nbytes: float, lane_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _readings(fn) -> tuple[float, float, float]:
+    """A kernel wrapper's three readings: ms by CUDA events around 20
+    back-to-back calls, device-only ms by CUDA events around a CUDA graph of
+    the same 20 launches, and the host's microseconds a call."""
+    from tools.torch_profile_step import cuda_ms, graph_ms, host_us
+
+    return cuda_ms(fn, reps=20), graph_ms(fn, reps=20), host_us(fn, reps=20)
+
+
+def _shares(ms: float, device_ms: float, host: float, bound_ms: float,
+            all_ms: float = None) -> str:
+    """The readings and their shares of the bound (and, for K2, of the time
+    to move every input byte)."""
+    text = (f"kernel {ms:.4f} ms by events ({100 * bound_ms / ms:.1f}% of its bound), "
+            f"{device_ms:.4f} ms device-only ({100 * bound_ms / device_ms:.1f}% of its bound), "
+            f"host {host:.1f} us a call")
+    if all_ms is not None:
+        text += (f"; every input byte (not a bound) {all_ms:.4f} ms: {100 * all_ms / ms:.1f}% "
+                 f"by events, {100 * all_ms / device_ms:.1f}% device-only")
+    return text
+
+
 def _frames(data: bytes, free_kbps: int = None) -> list[bytes]:
     """The frames of a Layer III stream (MPEG-1, 2 or 2.5; free-format
     frames sized by free_kbps); raises on a bad sync word, a gap or trailing
@@ -317,6 +348,18 @@ def _sweep_bound(n: int) -> tuple[float, str]:
     return _bound(4 * (576 * n + n + 2 * 20 * n), n * 20 * (576 * 5 + 288 * 4))
 
 
+def _pack_bound(nbits, cap: int) -> tuple[float, str, float]:
+    """K2's bound on these inputs: read nbits and the chunks of the live
+    slots (nbits > 0; a dead slot's chunk is not needed), write the images
+    and totals; per slot: scan add, offset, shift, up to three ORs. Also the
+    time to move every input byte, the measure the earlier K2 kernel was read
+    against: (bound_ms, bound_by, all_inputs_ms)."""
+    F, P = nbits.shape
+    live = int((nbits > 0).sum())
+    bound_ms, bound_by = _bound(4 * F * P + 4 * live + F * cap + 4 * F, 6 * F * P)
+    return bound_ms, bound_by, _bound(4 * 2 * F * P + F * cap + 4 * F, 6 * F * P)[0]
+
+
 def _check_sweep(sweep_input, what: str, card: str) -> None:
     """K1 against its plain version, bit-exact, on a path's own sweep input;
     its time, bound and share."""
@@ -337,13 +380,13 @@ def _check_sweep(sweep_input, what: str, card: str) -> None:
     if err:
         raise AssertionError(f"rate_sweep kernel disagrees with its plain version on the {what} "
                              f"input (max {err})")
-    ms = cuda_ms(lambda: kernels.rate_sweep(mag, g, iso=iso), reps=20)
+    ms, device_ms, host = _readings(lambda: kernels.rate_sweep(mag, g, iso=iso))
     plain_ms = cuda_ms(lambda: kernels.rate_sweep_plain(mag, g, iso), reps=3, warmup=1)
     bound_ms, bound_by = _sweep_bound(n)
     print(f"[K1 {what}] rate_sweep bit-exact on the {what} path's input N={n} "
-          f"({'iso' if iso else 'compat'} law), {card}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{100 * bound_ms / ms:.1f}% of its bound", flush=True)
+          f"({'iso' if iso else 'compat'} law), {card}: "
+          f"{_shares(ms, device_ms, host, bound_ms)}, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
 
 
 def _check_polyphase(hist, pcm, what: str) -> float:
@@ -453,15 +496,14 @@ def _check_pack(pack_input, what: str, card: str, repeat: int = 3, frames: int =
     if err:
         raise AssertionError(f"pack kernel disagrees with its plain version on the {what} input (max {err})")
     F, P = c_d.shape
-    ms = cuda_ms(lambda: kernels.pack(c_d, n_d, cap), reps=20)
+    ms, device_ms, host = _readings(lambda: kernels.pack(c_d, n_d, cap))
     plain_ms = cuda_ms(lambda: kernels.pack_plain(c_d, n_d, cap), reps=5)
-    bound_ms, bound_by = _bound(4 * 2 * F * P + F * cap + 4 * F, 6 * F * P)
+    bound_ms, bound_by, all_ms = _pack_bound(n_d, cap)
     print(f"[K2 {what}] pack bit-exact on the {what} path's input F={F} P={P} cap={cap} "
           f"({int((n_d > 0).sum())} live slots, widest {int(n_d.max())} bits) and on its slots "
-          f"{repeat} times over ({over} of {c_r.shape[0]} frames past the cap), {card}: kernel "
-          f"{ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{100 * bound_ms / ms:.1f}% of its bound", flush=True)
+          f"{repeat} times over ({over} of {c_r.shape[0]} frames past the cap), {card}: "
+          f"{_shares(ms, device_ms, host, bound_ms, all_ms)}, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
     return over
 
 
@@ -972,7 +1014,7 @@ def main() -> int:
     if err:
         raise AssertionError(f"rate_sweep kernel disagrees with its plain version (max {err})")
     flat_m, flat_g = mag_m.reshape(-1, 576), g_m.reshape(-1)
-    ms = cuda_ms(lambda: kernels.rate_sweep(flat_m, flat_g), reps=20)
+    ms, device_ms, host = _readings(lambda: kernels.rate_sweep(flat_m, flat_g))
 
     def plain_sweep():
         for s in range(0, n_main, 8192):
@@ -981,10 +1023,11 @@ def main() -> int:
     plain_ms = cuda_ms(plain_sweep, reps=3, warmup=1)
     bound_ms, bound_by = _sweep_bound(n_main)
     report["rate_sweep"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                            "device_ms": device_ms, "host_us": host}
     print(f"[K1] rate_sweep bit-exact, both laws, N=37, FMA knife edges and N={n_main}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
+          f"{_shares(ms, device_ms, host, bound_ms)}, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
     print(f"[K1] rate_sweep at {100 * bound_ms / ms:.1f}% of its bound, {card}", flush=True)
     phase_done("K1")
 
@@ -1004,11 +1047,9 @@ def main() -> int:
         pby, ptot = kernels.pack_plain(c_d, n_d, cap)
         err = max(err, int((by.int() - pby.int()).abs().max()), int((tot - ptot).abs().max()))
         if F == 32768:
-            ms = cuda_ms(lambda: kernels.pack(c_d, n_d, cap), reps=20)
+            ms, device_ms, host = _readings(lambda: kernels.pack(c_d, n_d, cap))
             plain_ms = cuda_ms(lambda: kernels.pack_plain(c_d, n_d, cap), reps=5)
-            # read chunks and nbits, write the images and totals; per slot:
-            # scan add, offset, shift, up to three byte ORs
-            bound_ms, bound_by = _bound(4 * 2 * F * P + F * cap + 4 * F, 6 * F * P)
+            bound_ms, bound_by, all_ms = _pack_bound(n_d, cap)
     q = rp.integers(-15, 16, size=(5, 4, 576)).astype(np.int32)
     bvh = rp.integers(0, 289, size=(5, 4)).astype(np.int32)
     chunks, nbits = dsp.pair_chunks_device(torch.from_numpy(q).to(dev), torch.from_numpy(bvh).to(dev))
@@ -1021,10 +1062,11 @@ def main() -> int:
     if err:
         raise AssertionError(f"pack kernel disagrees with its plain version (max {err})")
     report["pack"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    print(f"[K2] pack bit-exact at 5 shapes and vs the host packer: "
-          f"F=32768 P=1152 cap=894 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                      "device_ms": device_ms, "host_us": host}
+    print(f"[K2] pack bit-exact at 5 shapes and vs the host packer: F=32768 P=1152 cap=894 "
+          f"{_shares(ms, device_ms, host, bound_ms, all_ms)}, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {card}", flush=True)
     phase_done("K2")
 
     # ---- 3b. K3 polyphase filterbank vs its plain version and the matmul ------

@@ -11,12 +11,15 @@ tensor takes the plain version; a CUDA tensor launches the kernel or raises
 raise). Each wrapper adds one to `LAUNCHES[name]` where it launches its
 kernel, and nowhere else.
 
-K1 and K3 are laid out for the H100's SM (csrc/rate_sweep.cu, csrc/polyphase.cu
-say how): K1 quantizes without a float-to-int conversion and prices a pair
-with one byte lookup in `sweep_cost_table`; K3 register-tiles its cosine
-product and walks `polyphase_plan`'s tiles with asynchronous staging. What
-the launches need beyond pointers (the cost table, the tiling, the dynamic
-shared-memory size) is computed here, where the CPU tests reach it.
+All three are laid out for the H100's SM (each csrc/*.cu says how): K1
+quantizes without a float-to-int conversion and prices a pair with one byte
+lookup in `sweep_cost_table`; K2 is a persistent grid of warps
+(`pack_plan`), each packing whole frames from a ring of slot tiles, the
+nbits staged by TMA bulk copies and only the live slots' chunks by cp.async;
+K3 register-tiles its cosine product and walks
+`polyphase_plan`'s tiles with asynchronous staging. What the launches need
+beyond pointers (the cost table, the grids, the dynamic shared-memory sizes)
+is computed here, where the CPU tests reach it.
 
 Build: `nvcc` (sm_90a) compiles each `csrc/*.cu` into a shared library with
 a plain C interface under `swiftmp3_tpu_torch/_build/` at the first CUDA
@@ -57,8 +60,8 @@ _vp = ctypes.c_void_p
 _SIGNATURES = {
     # (mag, gstart, inv_table, cost_table, bits, bv, n, stream)
     "rate_sweep": [_vp, _vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, _vp],
-    # (chunks, nbits, out, total_bits, F, P, cap, stream)
-    "pack": [_vp, _vp, _vp, _vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, _vp],
+    # (chunks, nbits, out, total_bits, F, P, cap, blocks, smem_bytes, stream)
+    "pack": [_vp, _vp, _vp, _vp] + [ctypes.c_int] * 5 + [_vp],
     # (hist, pcm, wrev, mrev_t, S, n_rows, n_pcm, tiles_per_block, smem_bytes, stream)
     "polyphase": [_vp, _vp, _vp, _vp, _vp] + [ctypes.c_longlong] * 4 + [_vp],
 }
@@ -133,7 +136,7 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
 def _launch(name: str, device: torch.device, *args) -> None:
     """Call the C entry point of kernel `name` on the current stream of
     `device`; raise on a nonzero CUDA error code."""
-    lib = build_kernels()[name]
+    lib = _libs.get(name) or build_kernels()[name]
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, f"swm_{name}")(*args, stream)
     if err != 0:
@@ -243,6 +246,50 @@ def rate_sweep(
 
 # --- K2: the main_data pack --------------------------------------------------
 
+# The kernel's layout (csrc/pack.cu): warps a block, slots a staged tile,
+# tiles in each warp's ring, and blocks an SM at most (32 warps at <= 64
+# registers); a block's dynamic shared memory is, for each warp, its ring of
+# nbits and chunks tiles, its frame image (ceil(cap / 4) + 1 words, rounded
+# up to 4) and two mbarriers a stage.
+K2_WARPS = 8
+K2_TILE = 512
+K2_STAGES = 3
+K2_MAX_BLOCKS_PER_SM = 32 // K2_WARPS
+SM_COUNT = 132  # H100 SXM
+SM_SMEM_BYTES = 233472  # 228 KB of shared memory an SM
+BLOCK_SMEM_BYTES = 232448  # at most 227 KB a block
+BLOCK_SMEM_RESERVED = 1024  # the runtime's own share of each resident block
+MAX_PACK_SLOTS = (2**31 - 1) // 15  # bit offsets are int32
+
+
+def pack_smem_bytes(cap_bytes: int) -> int:
+    image_words = -(-(-(-cap_bytes // 4) + 1) // 4) * 4
+    return K2_WARPS * (4 * (K2_STAGES * 2 * K2_TILE + image_words) + 16 * K2_STAGES)
+
+
+@functools.lru_cache(maxsize=256)
+def pack_plan(F: int, P: int, cap_bytes: int) -> dict:
+    """The kernel's launch plan for F frames of P slots into cap_bytes: as
+    many blocks as fit on each SM (at most K2_MAX_BLOCKS_PER_SM, as the
+    shared memory allows) times SM_COUNT, and no more than the frames need
+    (one warp a frame); each warp walks frames w, w + warps, ... Made once
+    for each shape. Raises ValueError for a cap outside 1..16384 or a frame
+    whose bit offsets would pass int32."""
+    if not 0 < cap_bytes <= 16384:
+        raise ValueError(f"cap_bytes {cap_bytes} outside the kernel's 1..16384")
+    if not 0 <= P <= MAX_PACK_SLOTS:
+        raise ValueError(f"pack: {P} slots a frame pass the kernel's {MAX_PACK_SLOTS}")
+    smem = pack_smem_bytes(cap_bytes)
+    if smem > BLOCK_SMEM_BYTES:
+        raise ValueError(f"pack: {smem} B of shared memory a block pass {BLOCK_SMEM_BYTES}")
+    per_sm = min(K2_MAX_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + BLOCK_SMEM_RESERVED))
+    return {
+        "blocks": min(-(-F // K2_WARPS), per_sm * SM_COUNT),
+        "blocks_per_sm": per_sm,
+        "tiles": max(1, -(-P // K2_TILE)),
+        "smem_bytes": smem,
+    }
+
 
 def pack_plain(
     chunks: torch.Tensor, nbits: torch.Tensor, cap_bytes: int
@@ -285,8 +332,7 @@ def pack(
     F, P = chunks.shape
     _require(chunks, "chunks", torch.int32, (F, P))
     _require(nbits, "nbits", torch.int32, (F, P))
-    if not 0 < cap_bytes <= 16384:
-        raise ValueError(f"cap_bytes {cap_bytes} outside the kernel's 1..16384")
+    plan = pack_plan(F, P, cap_bytes)
     out = torch.empty((F, cap_bytes), dtype=torch.uint8, device=chunks.device)
     total = torch.empty((F,), dtype=torch.int32, device=chunks.device)
     if F == 0:
@@ -294,7 +340,7 @@ def pack(
     _launch(
         "pack", chunks.device,
         chunks.data_ptr(), nbits.data_ptr(), out.data_ptr(), total.data_ptr(),
-        F, P, cap_bytes,
+        F, P, cap_bytes, plan["blocks"], plan["smem_bytes"],
     )
     LAUNCHES["pack"] += 1
     return out, total

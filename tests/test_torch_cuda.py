@@ -1,7 +1,8 @@
 """Card-only tests of the port: the hand-written CUDA kernels against their
 plain PyTorch versions (K2 also at the strict and hq paths' shapes, on the
 pack input of every hq configuration, the hq flags' included, with frames
-past the cap, and against the host packer on strict frames), the port's
+past the cap, against the host packer on strict frames, and at the edges of
+its launch plan), the port's
 entry points on a CUDA device against the same entry points on the CPU,
 compat, spec_strict and hq, and the serving pool and reset_lanes on the card
 against sessions on the card; K1, K2 and K3 on the LSF and free-format
@@ -53,6 +54,22 @@ PACK_SHAPES = [
     (16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160), (2048, 1152, 894),
     (2048, 1872, 894), (2048, 936, 910), (2048, 4176, 894), (2048, 2088, 910),
     (2048, 4176, 790), (2048, 2088, 806), (2048, 2088, 1014), (2048, 4176, 582),
+    # the LSF and free-format paths' slots and caps
+    (2048, 576, 444), (2048, 936, 444), (2048, 1044, 460), (2048, 2088, 982),
+]
+# K2's edges (kernels.pack_plan: a grid of at most 264 blocks of 8 warps at
+# cap 894, a warp a frame at a time; tiles of K2_TILE = 512 slots staged by
+# bulk copies where 16-byte aligned): one frame; more than three times the
+# grid's 2112 frames at once; one slot a frame; P = 4k + 2 (every other row,
+# and each row's last tile, not 16-byte aligned); an odd P; the most slots
+# chip_smoke.py packs a frame (16 x 4176); cap 1 and cap 16384; all-zero
+# nbits; frames past the cap; and inputs whose base is not 16-byte aligned
+# (every tile by ordinary loads)
+PACK_EDGE_CASES = [
+    (1, 1152, 894, "under"), (12673, 1152, 894, "under"), (64, 1, 894, "under"),
+    (64, 1158, 894, "under"), (64, 577, 300, "over"), (3, 66816, 16384, "under"),
+    (3, 66816, 894, "over"), (64, 1152, 1, "over"), (64, 1152, 16384, "under"),
+    (64, 1152, 894, "zero"), (64, 1152, 894, "offset"),
 ]
 # frames whose bytes may differ between the card and the CPU: a float ULP in
 # the matmul or reduction order can move a quantization knife edge
@@ -125,6 +142,28 @@ def test_pack_kernel_matches_plain(cuda_device, F, P, cap):
     assert kernels.LAUNCHES["pack"] == before + 1
     pby, ptot = kernels.pack_plain(c, n, cap)
     assert torch.equal(by, pby) and torch.equal(tot, ptot)
+
+
+@pytest.mark.parametrize("F,P,cap,kind", PACK_EDGE_CASES)
+def test_pack_kernel_matches_plain_at_the_edges(cuda_device, F, P, cap, kind):
+    ch, nb = pack_input(F, P, cap, overflow=kind == "over")
+    if kind == "zero":
+        nb[:] = 0
+    c = torch.from_numpy(ch).to(cuda_device)
+    n = torch.from_numpy(nb).to(cuda_device)
+    if kind == "offset":  # contiguous views 4 bytes past a 16-byte boundary
+        c = torch.cat([c.new_zeros(1), c.reshape(-1)])[1:].view(F, P)
+        n = torch.cat([n.new_zeros(1), n.reshape(-1)])[1:].view(F, P)
+        assert c.data_ptr() % 16 == 4 and n.data_ptr() % 16 == 4
+    before = kernels.LAUNCHES["pack"]
+    by, tot = kernels.pack(c, n, cap)
+    assert kernels.LAUNCHES["pack"] == before + 1
+    pby, ptot = kernels.pack_plain(c, n, cap)
+    assert torch.equal(by, pby) and torch.equal(tot, ptot)
+    if kind == "over":
+        assert int(tot.min()) > 8 * cap
+    if kind == "zero":
+        assert int(tot.abs().max()) == 0 and int(by.max()) == 0
 
 
 def test_pack_kernel_truncates_at_cap(cuda_device):

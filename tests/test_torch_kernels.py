@@ -7,7 +7,8 @@ filterbank) within the JAX package's own K3 tolerance, 2e-5, against the
 stepwise filterbank and the Pallas kernel. The CUDA kernels themselves run
 only on a card (tests/test_torch_cuda.py). A mocked launch shows that a CUDA
 tensor never reaches a plain version, and a mocked nvcc that a failed build
-raises.
+raises; K2's launch plan (its grid, tiles and shared memory) is held to the
+constants of its CUDA source.
 """
 
 import jax
@@ -304,6 +305,101 @@ def test_polyphase_plan_constants_match_the_cuda_source():
     assert "constexpr int kPartialStride = 64 + 4;" in src
     assert "constexpr int kSmemFloats = 64 * 32 + kSpan + kTile * kPartialStride;" in src
     assert "constexpr int kSpan = 32 * kTile + kHist;" in src
+
+
+@pytest.mark.parametrize(
+    "F,P,cap,blocks,per_sm,tiles,smem",
+    [
+        (32768, 1152, 894, 264, 2, 3, 105984),  # the main path: the grid at its limit
+        (2048, 1152, 894, 256, 2, 3, 105984),  # the serving pool: a warp a frame
+        (12673, 1152, 894, 264, 2, 3, 105984),  # each warp 6 frames, some 7
+        (32768, 576, 444, 264, 2, 2, 102272),  # LSF: one tile and a short one
+        (32768, 4176, 582, 264, 2, 9, 103424),  # intensity stereo's frame
+        (3, 66816, 16384, 1, 1, 131, 229888),  # the widest slots and cap: one block an SM
+        (64, 1152, 2160, 8, 1, 3, 116096),  # cap 2160: past two blocks an SM
+        (5, 1, 1, 1, 2, 1, 98816),
+        (0, 1152, 894, 0, 2, 3, 105984),
+    ],
+)
+def test_pack_launch_plan(monkeypatch, F, P, cap, blocks, per_sm, tiles, smem):
+    """The persistent grid the wrapper hands to the CUDA kernel: no larger
+    than the blocks that fit on the SMs at once, no smaller than one warp a
+    frame needs; tiles of K2_TILE slots cover a frame; the blocks an SM
+    holds fit its shared memory."""
+    plan = kernels.pack_plan(F, P, cap)
+    assert plan == {"blocks": blocks, "blocks_per_sm": per_sm, "tiles": tiles, "smem_bytes": smem}
+    assert blocks <= per_sm * kernels.SM_COUNT
+    assert blocks * kernels.K2_WARPS >= F or blocks == per_sm * kernels.SM_COUNT
+    assert (blocks - 1) * kernels.K2_WARPS < F or F == 0
+    assert (tiles - 1) * kernels.K2_TILE < max(P, 1) <= tiles * kernels.K2_TILE
+    assert 1 <= per_sm <= kernels.K2_MAX_BLOCKS_PER_SM
+    assert per_sm * (smem + kernels.BLOCK_SMEM_RESERVED) <= kernels.SM_SMEM_BYTES
+    assert smem <= kernels.BLOCK_SMEM_BYTES
+
+    calls = []
+    monkeypatch.setattr(kernels, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(kernels, "_require_cuda", lambda *t: None)
+    monkeypatch.setattr(kernels, "_launch", lambda name, device, *args: calls.append(args))
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(NO_LAUNCHES))
+    if 0 < F * P <= 20000:
+        ch, nb = pack_input(F, P, cap)
+        kernels.pack(torch.from_numpy(ch), torch.from_numpy(nb), cap)
+        assert calls[0][4:] == (F, P, cap, blocks, smem)
+
+
+def test_pack_plan_fits_shared_memory_at_every_cap():
+    """Every cap the wrapper accepts, 1 to 16384, fits one block's 227 KB,
+    at any P (the ring's tiles do not grow with P)."""
+    for cap in range(1, 16385):
+        plan = kernels.pack_plan(1, 66816, cap)
+        assert plan["smem_bytes"] <= kernels.BLOCK_SMEM_BYTES and plan["blocks_per_sm"] >= 1
+    assert kernels.pack_plan(1, 1, 894)["smem_bytes"] == kernels.pack_plan(1, 66816, 894)["smem_bytes"]
+    kernels.pack_plan.cache_clear()
+
+
+@pytest.mark.parametrize("kind", ["cap_zero", "cap_past", "slots_past", "dtype", "shape"])
+def test_cuda_pack_wrapper_refuses_what_the_plan_cannot_hold(monkeypatch, kind):
+    monkeypatch.setattr(kernels, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(kernels, "_require_cuda", lambda *t: None)
+    monkeypatch.setattr(kernels, "_launch", lambda *a: pytest.fail("launched"))
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(NO_LAUNCHES))
+    ch, nb = pack_input(2, 576, 894)
+    c, n, cap = torch.from_numpy(ch), torch.from_numpy(nb), 894
+    if kind == "cap_zero":
+        cap = 0
+    elif kind == "cap_past":
+        cap = 16385
+    elif kind == "slots_past":  # bit offsets past int32, scaled down
+        monkeypatch.setattr(kernels, "MAX_PACK_SLOTS", 575)
+        kernels.pack_plan.cache_clear()
+    elif kind == "dtype":
+        n = n.to(torch.int64)
+    else:
+        n = n[:, :575].contiguous()
+    with pytest.raises((TypeError, ValueError)):
+        kernels.pack(c, n, cap)
+    kernels.pack_plan.cache_clear()
+    assert kernels.LAUNCHES == NO_LAUNCHES
+
+
+def test_pack_plan_constants_match_the_cuda_source():
+    import re
+
+    with open(f"{kernels.CSRC_DIR}/pack.cu") as fh:
+        src = fh.read()
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert constant("kWarps") == kernels.K2_WARPS
+    assert constant("kTile") == kernels.K2_TILE
+    assert constant("kStages") == kernels.K2_STAGES
+    assert "constexpr int kMaxBlocksPerSm = 32 / kWarps;" in src
+    assert kernels.K2_MAX_BLOCKS_PER_SM == 32 // kernels.K2_WARPS
+    assert f"constexpr int kMaxBlockSmem = {kernels.BLOCK_SMEM_BYTES};" in src
+    assert "return ((cap + 3) / 4 + 1 + 3) / 4 * 4;" in src
+    assert "return 4 * (kStages * 2 * kTile + image_words(cap)) + 16 * kStages;" in src
+    assert "return kWarps * warp_smem_bytes(cap);" in src
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing(monkeypatch):

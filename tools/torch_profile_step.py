@@ -75,6 +75,47 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device-only time of fn() in ms: CUDA events around replays of one
+    CUDA graph of reps calls, per call. The graph holds the kernels alone,
+    so the wrapper's host work (checks, allocation, the launch call) is out
+    of the reading. fn runs once first, outside the graph."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def host_us(fn, reps: int = 20) -> float:
+    """Host time of one fn() call in microseconds, over reps calls issued
+    back to back (the card drains them after the clock stops)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 def filterbank_input(pcm_i16: np.ndarray, device) -> torch.Tensor:
     """The main path's filterbank input for one step of stereo audio: int16
     [B, T, 2304] ingested and split into [B, 2, T*1152] float32 channels
