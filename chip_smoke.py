@@ -21,7 +21,7 @@ reference streams are committed files). Phases:
      windows: the folded matmul pads them to its 4-a-row packing); then
      the path that runs K3, the filterbank stage of
      tools/torch_profile_step.py, with launch counts read around it, and
-     K3's time as a share of its bound;
+     K3's time as a share of its bound, read three ways as K1 and K2 are;
   4. the main path: BatchEncoder at 256 streams x 128 frames, 128 kbps CBR
      stereo 44.1 kHz, 2 steps of unique int16 audio rendered to bytes, with
      launch counts read around it; every stream's frame walk is checked;
@@ -88,6 +88,24 @@ reference streams are committed files). Phases:
      index 0, 489 or 490 bytes); then K1 bit-exact on the lsf iso path's
      sweep input (65 536 granules, ISO law) and K2 bit-exact on each path's
      pack input (P = 936, 1044, 576, 2088) and past the cap;
+  4k. the mesh ([mesh]): encode_batch of the main path's 256 streams x 256
+     frames (the two steps of bench audio joined, 128 frames a step) over
+     make_mesh() (every card), over a 4-position mesh on cuda:0 (64 streams
+     a position) and with device="cuda" and no mesh, launch counts read
+     around each (K1 and K2 once a step a position); every frame walk
+     checked; the every-card mesh byte-equal to the one-card run where it
+     is one position (else, like the 4-position mesh, structurally equal
+     with its flips pinned); then K1 and K2 bit-exact against their plain
+     versions on one position's own first inputs, and, with two cards or
+     more, on the last card while the first is current;
+  4l. two processes ([multihost]): chip_smoke.py --multihost-worker twice,
+     joined by initialize_multihost over gloo on localhost, both on cuda:0,
+     each passing 128 of the 256 streams to encode_batch_multihost (two
+     calls, the second timed warm); their bytes, concatenated, equal one
+     process's encode_batch of the 256 over the same layout (a 2-position
+     mesh on cuda:0) and are structurally equal to the one-card run, flips
+     pinned; each process's wall times and launch counts, and the one
+     process's wall time;
   5. parity: the 8 compat fixture rows through new_session(o) against the
      JAX backend's committed streams (tests/fixtures/*.tpu.mp3), and 2
      main-path streams and the ULP-telemetry corpus against the golden numpy
@@ -108,8 +126,8 @@ reference streams are committed files). Phases:
      backend's frozen session, within a ceiling per row, and exact with the
      CPU filterbank and MDCT;
   6. a `kernels` JSON line (K1 and K2 as the compat main path, the serving
-     pool and the LSF and free-format paths launched them, K3 as the
-     filterbank stage did), the card
+     pool, the LSF and free-format paths, the mesh runs and the two
+     processes launched them, K3 as the filterbank stage did), the card
      line, and the result line. Each phase's wall time is printed
      ([time]).
 
@@ -128,7 +146,8 @@ kernel was read against, which the kernel beats where most slots are dead
 and so is not a bound.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
-phase fails.
+phase fails (a [multihost] worker that fails or runs past
+MULTIHOST_TIMEOUT_S included).
 """
 
 from __future__ import annotations
@@ -218,6 +237,15 @@ LSF_JAX_FLIP_CEILING = {
     "lsf_iso_stereo64_22k_burst": 2,
     "ff_strict_mono150_44k_noise": 2,
 }
+
+# [mesh] and [multihost]: the 4-position mesh's and the two processes' frames
+# that differ from the one-card encode_batch of the same streams (a smaller
+# batch a position may take another cuBLAS algorithm), under the telemetry
+# suite's rule max(2x, +2) from the card's count (H100 80GB HBM3, 700 W: 0
+# of 65 536 both ways).
+MESH_FLIP_CEILING = 2
+MESH_POSITIONS = 4  # [mesh]: positions on cuda:0, 64 streams each
+MULTIHOST_TIMEOUT_S = 300  # [multihost]: each worker, start-up included
 
 STEPS_MAIN = 2
 STEPS_STRICT = 2
@@ -360,6 +388,21 @@ def _pack_bound(nbits, cap: int) -> tuple[float, str, float]:
     return bound_ms, bound_by, _bound(4 * 2 * F * P + F * cap + 4 * F, 6 * F * P)[0]
 
 
+def _sweep_on(sweep_input, dev) -> int:
+    """K1 on `dev` against its plain version there: the max difference."""
+    from swiftmp3_tpu_torch.ops import kernels
+
+    mag, g, iso = sweep_input
+    mag, g = mag.to(dev).reshape(-1, 576).contiguous(), g.to(dev).reshape(-1).contiguous()
+    bits, bv = kernels.rate_sweep(mag, g, iso=iso)
+    err = 0
+    for s in range(0, g.numel(), 8192):
+        pb, pv = kernels.rate_sweep_plain(mag[s : s + 8192], g[s : s + 8192], iso)
+        err = max(err, int((pb - bits[s : s + 8192]).abs().max()),
+                  int((pv - bv[s : s + 8192]).abs().max()))
+    return err
+
+
 def _check_sweep(sweep_input, what: str, card: str) -> None:
     """K1 against its plain version, bit-exact, on a path's own sweep input;
     its time, bound and share."""
@@ -371,12 +414,7 @@ def _check_sweep(sweep_input, what: str, card: str) -> None:
     mag, g, iso = sweep_input
     mag, g = mag.reshape(-1, 576).contiguous(), g.reshape(-1).contiguous()
     n = g.numel()
-    bits, bv = kernels.rate_sweep(mag, g, iso=iso)
-    err = 0
-    for s in range(0, n, 8192):
-        pb, pv = kernels.rate_sweep_plain(mag[s : s + 8192], g[s : s + 8192], iso)
-        err = max(err, int((pb - bits[s : s + 8192]).abs().max()),
-                  int((pv - bv[s : s + 8192]).abs().max()))
+    err = _sweep_on(sweep_input, mag.device)
     if err:
         raise AssertionError(f"rate_sweep kernel disagrees with its plain version on the {what} "
                              f"input (max {err})")
@@ -919,6 +957,215 @@ def _parity_lsf() -> None:
             raise AssertionError(f"{row} byte flips above the pinned ceiling")
 
 
+def _stream_rows(audio) -> list:
+    """The bench audio's steps [B, T, n] joined per stream: B int16 streams
+    of len(audio) * T frames."""
+    return [np.concatenate([a[b].reshape(-1) for a in audio]) for b in range(audio[0].shape[0])]
+
+
+def _mesh(opts, audio, card: str) -> tuple:
+    """Phase 4k: encode_batch of the main path's streams over every card,
+    over MESH_POSITIONS positions on cuda:0 and on one card without a mesh;
+    K1 and K2 on one position's first inputs (and on the last card, given
+    two). Returns (the launch counts of the three runs, summed; the
+    one-card bytes)."""
+    import torch
+
+    from swiftmp3_tpu_torch.ops import kernels
+    from swiftmp3_tpu_torch.parallel import encode_batch, make_mesh
+
+    streams = _stream_rows(audio)
+    steps, T = len(audio), audio[0].shape[1]
+    runs = {}
+    for label, kw in (("every card", dict(mesh=make_mesh())),
+                      (f"{MESH_POSITIONS} positions on cuda:0",
+                       dict(mesh=make_mesh(["cuda:0"] * MESH_POSITIONS))),
+                      ("one card", dict(device="cuda"))):
+        positions = kw["mesh"].size if "mesh" in kw else 1
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with _FirstInputs() as first:
+            t0 = time.perf_counter()
+            out = encode_batch(opts, streams, frames_per_step=T, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        for name in ("rate_sweep", "pack"):
+            if launches[name] != steps * positions:
+                raise AssertionError(f"[mesh] {label}: {launches[name]} launches of {name} in {steps} "
+                                     f"steps over {positions} positions")
+        _check_walks(out, steps * T)
+        runs[label] = (out, wall, positions, launches)
+        if positions == MESH_POSITIONS:
+            position_inputs = first
+        del first
+    one = runs["one card"][0]
+    n_frames = len(one) * steps * T
+    text = []
+    for label, (out, wall, positions, launches) in runs.items():
+        text.append(f"{label} ({positions} position{'s' * (positions > 1)}, {len(one) // positions} "
+                    f"streams each) {wall:.3f} s, {wall / steps:.3f} s a step, launches "
+                    f"{launches['rate_sweep']}/{launches['pack']}")
+        if label == "one card":
+            continue
+        if positions == 1:
+            if out != one:
+                raise AssertionError(f"[mesh] {label}: one position differs from the one-card run")
+            text[-1] += ": byte-equal to the one-card run"
+            continue
+        flips = sum(_compare_streams(a, b, f"[mesh] {label}") for a, b in zip(out, one))
+        text[-1] += (f": structure equal to the one-card run, {flips}/{n_frames} frames differ "
+                     f"(ceiling {MESH_FLIP_CEILING})")
+        if flips > MESH_FLIP_CEILING:
+            raise AssertionError(f"[mesh] {label}: byte flips above the pinned ceiling")
+    print(f"[mesh] encode_batch {opts.mode.value} {opts.bitrate_kbps} kbps, {len(one)} streams x "
+          f"{steps * T} frames, {T} a step, {card}: " + "; ".join(text)
+          + f"; every frame walk OK (wall times with the render; launches K1/K2)", flush=True)
+    _check_sweep(position_inputs.sweep, "mesh", card)
+    _check_pack(position_inputs.pack, "mesh", card)
+    n = torch.cuda.device_count()
+    if n > 1:
+        dev = torch.device("cuda", n - 1)
+        torch.cuda.set_device(0)
+        c, nb, cap = position_inputs.pack
+        by, tot = kernels.pack(c.to(dev), nb.to(dev), cap)
+        pby, ptot = kernels.pack_plain(c.to(dev), nb.to(dev), cap)
+        err = max(_sweep_on(position_inputs.sweep, dev), int((by.int() - pby.int()).abs().max()),
+                  int((tot - ptot).abs().max()))
+        if err:
+            raise AssertionError(f"[mesh] K1/K2 on {dev} disagree with their plain versions (max {err})")
+        print(f"[mesh] K1 and K2 bit-exact on {dev} while cuda:0 is current, {card}", flush=True)
+    else:
+        print("[mesh] this host has 1 card: the mesh of every card is one position, and K1 and K2 "
+              "on a card other than the current one were not run (they need two cards)", flush=True)
+    total = {k: sum(r[3][k] for r in runs.values()) for k in ("rate_sweep", "pack")}
+    return total, one
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _multihost_worker(port: str, pid: str, out_dir: str) -> int:
+    """One process of [multihost]: joins the group of two, takes its half
+    of the main path's streams and encodes them twice with
+    encode_batch_multihost over make_mesh() (both processes' cuda:0);
+    writes its bytes to out_dir and prints one JSON line of its wall times
+    and launch counts."""
+    import torch
+
+    from swiftmp3_tpu_torch.parallel import initialize_multihost
+
+    pid = int(pid)
+    initialize_multihost(f"127.0.0.1:{port}", 2, pid)
+    from swiftmp3_tpu_torch.ops import kernels
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+    from swiftmp3_tpu_torch.parallel import encode_batch_multihost, make_mesh
+    from tests.torch_inputs import B_MAIN, MAIN_OPTIONS, T_MAIN, bench_audio
+
+    opts = MP3EncoderOptions(**MAIN_OPTIONS)
+    rng = np.random.default_rng(0)  # the main path's audio
+    audio = [bench_audio(rng, B_MAIN, T_MAIN, opts.channels, opts.sample_rate) for _ in range(STEPS_MAIN)]
+    half = B_MAIN // 2
+    mine = _stream_rows(audio)[pid * half : (pid + 1) * half]
+    del audio
+    mesh = make_mesh()
+    kernels.build_kernels()
+    walls, launches, blobs = [], [], None
+    for _ in range(2):  # the first call warms the process up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = encode_batch_multihost(opts, mine, frames_per_step=T_MAIN, mesh=mesh)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(dict(kernels.LAUNCHES))
+        if blobs is not None and got != blobs:
+            raise AssertionError(f"process {pid}: the second call's bytes differ from the first's")
+        blobs = got
+    np.savez(os.path.join(out_dir, f"streams_{pid}.npz"),
+             lengths=np.array([len(b) for b in blobs]), data=np.frombuffer(b"".join(blobs), np.uint8))
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"pid": pid, "mesh": [[p, str(d)] for p, d in mesh.positions],
+                      "walls_s": walls, "launches": launches}), flush=True)
+    return 0
+
+
+def _multihost(opts, audio, one_card: list, card: str) -> dict:
+    """Phase 4l: two worker processes on cuda:0 (their bytes against one
+    process's encode_batch over the same layout, and the one-card run's);
+    returns the launch counts of both processes' calls, summed."""
+    import tempfile
+
+    import torch
+
+    from swiftmp3_tpu_torch.parallel import encode_batch, make_mesh
+
+    streams = _stream_rows(audio)
+    steps, T = len(audio), audio[0].shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = encode_batch(opts, streams, frames_per_step=T, mesh=make_mesh(["cuda:0"] * 2))
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [
+            subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--multihost-worker", str(port), str(pid), tmp],
+                cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for pid in range(2)
+        ]
+        try:
+            outs = [p.communicate(timeout=MULTIHOST_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        span = time.perf_counter() - t0
+        for pid, (p, (so, se)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"[multihost] process {pid} failed (exit {p.returncode}):\n"
+                                     f"{so[-2000:]}\n{se[-4000:]}")
+        reports = [json.loads(so.strip().splitlines()[-1]) for so, _ in outs]
+        got = []
+        for pid in range(2):
+            z = np.load(os.path.join(tmp, f"streams_{pid}.npz"))
+            ends = np.cumsum(z["lengths"])
+            data = z["data"].tobytes()
+            got += [data[e - n : e] for n, e in zip(z["lengths"], ends)]
+    if got != one:
+        differ = sum(a != b for a, b in zip(got, one))
+        raise AssertionError(f"[multihost] the two processes' bytes differ from one process's in {differ} "
+                             "streams")
+    _check_walks(got, steps * T)
+    flips = sum(_compare_streams(a, b, "[multihost] vs one card") for a, b in zip(got, one_card))
+    if flips > MESH_FLIP_CEILING:
+        raise AssertionError("[multihost] byte flips against the one-card run above the pinned ceiling")
+    for r in reports:
+        for calls in r["launches"]:
+            if calls["rate_sweep"] != steps or calls["pack"] != steps:
+                raise AssertionError(f"[multihost] process {r['pid']} launched {calls} in {steps} steps")
+    print(f"[multihost] two processes (gloo on localhost), mesh {reports[0]['mesh']}, each "
+          f"encode_batch_multihost of {len(one) // 2} streams x {steps * T} frames, {card}: "
+          + "; ".join(f"process {r['pid']} wall s {['%.3f' % w for w in r['walls_s']]} (cold, warm), "
+                      f"launches {r['launches'][-1]}" for r in reports)
+          + f"; both processes {span:.2f} s from start to exit; one process, the same streams over the "
+          f"same 2 positions: {one_wall:.3f} s; bytes equal to the one process's, structure equal to the "
+          f"one-card run with {flips}/{len(one) * steps * T} frames differing (ceiling "
+          f"{MESH_FLIP_CEILING})", flush=True)
+    return {k: sum(c[k] for r in reports for c in r["launches"]) for k in ("rate_sweep", "pack")}
+
+
 def main() -> int:
     import torch
 
@@ -1089,10 +1336,15 @@ def main() -> int:
     n_out = n_rows * (n_pcm // 32) * 32
     # read hist and pcm, write S; 16 + 64 FMAs per output
     bound_ms, bound_by = _bound(4 * (n_rows * 480 + n_rows * n_pcm + n_out), 80 * n_out)
+    k3_hist, k3_pcm = hist_main.contiguous(), chunk_main.contiguous()
+    k3_ms, k3_device_ms, k3_host = _readings(lambda: kernels.polyphase_subbands(k3_hist, k3_pcm))
+    del k3_hist, k3_pcm
     report["polyphase"] = {"max_abs_err": err, "ms": fb["ms"], "plain_ms": fb["plain_ms"],
                            "bound_ms": bound_ms, "bound_by": bound_by,
-                           "library_ms": fb["library_ms"]}
-    print(f"[K3] filterbank stage, {n_rows} rows x T={T_MAIN}, {card}: kernel {fb['ms']:.4f} ms, "
+                           "library_ms": fb["library_ms"], "device_ms": k3_device_ms,
+                           "host_us": k3_host}
+    print(f"[K3] filterbank stage, {n_rows} rows x T={T_MAIN}, {card}: kernel {fb['ms']:.4f} ms; "
+          f"alone {_shares(k3_ms, k3_device_ms, k3_host, bound_ms)}; "
           f"plain {fb['plain_ms']:.4f} ms, folded matmul {fb['matmul_ms']:.4f} ms, "
           f"conv1d {fb['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
           f"launches {k3_launches}", flush=True)
@@ -1276,6 +1528,11 @@ def main() -> int:
     phase_done("hq is")
     lsf_launches = _lsf(mono_audio, card)
     phase_done("lsf and free format")
+    mesh_launches, one_card = _mesh(opts, audio, card)
+    phase_done("mesh")
+    multihost_launches = _multihost(opts, audio, one_card, card)
+    del one_card
+    phase_done("multihost")
 
     # ---- 5. parity ---------------------------------------------------------
     fixture_flips, fixture_frames = 0, 0
@@ -1416,10 +1673,12 @@ def main() -> int:
         ("polyphase", "swiftmp3_tpu_torch/ops/csrc/polyphase.cu",
          "swiftmp3_tpu/ops/pallas_kernels.py:77"),
     ]
-    # K1 and K2 counted on the main path, the serving pool and the LSF and
-    # free-format paths, K3 on the filterbank stage
+    # K1 and K2 counted on the main path, the serving pool, the LSF and
+    # free-format paths, the mesh runs and the two processes, K3 on the
+    # filterbank stage
     launches = {
         n: main_launches[n] + serve_launches[n] + sum(v[n] for v in lsf_launches.values())
+        + mesh_launches[n] + multihost_launches[n]
         for n in ("rate_sweep", "pack")
     }
     launches["polyphase"] = k3_launches
@@ -1436,4 +1695,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(_multihost_worker(*sys.argv[2:5]))
     sys.exit(main())

@@ -10,16 +10,19 @@ It covers the compat, spec_strict and hq chunk programs (the hq flags
 included: the static and adaptive lowpass, demand VBR, reservoir depth 1-8,
 distortion control and intensity stereo) at MPEG-1 rates, at the LSF rates
 of MPEG-2 and 2.5 (8-24 kHz, one granule a frame) and in free format, on
-one device, through every entry point of the reference but the mesh:
+one device or over a data mesh of devices and processes, through every
+entry point of the reference:
 
-    swiftmp3_tpu_torch.encoder.new_session(options)              # one stream
+    swiftmp3_tpu_torch.MP3Encoder(options).new_session()         # one stream
     swiftmp3_tpu_torch.parallel.BatchEncoder(options, B, T)      # B streams
     swiftmp3_tpu_torch.parallel.encode_batch / encode_corpus     # files
     swiftmp3_tpu_torch.parallel.StreamPool(options, lanes, T)    # serving
+    swiftmp3_tpu_torch.parallel.make_mesh() / encode_batch_multihost
     python -m swiftmp3_tpu_torch in.wav out.mp3 [--device cpu]   # command line
 
-Every entry point runs on the card ("cuda") unless the caller passes
-`device="cpu"`; nothing falls back to the CPU on its own. Every Pallas
+Every entry point runs on the card ("cuda", or every card with
+`mesh=make_mesh()`) unless the caller passes `device="cpu"` or a mesh of
+CPU positions; nothing falls back to the CPU on its own. Every Pallas
 kernel of the reference has a hand-written CUDA counterpart (`ops/csrc/`),
 launched for CUDA tensors; CPU tensors take their plain PyTorch versions
 (`ops/kernels.py`).
@@ -29,6 +32,8 @@ TF32) — the counterpart of the reference's `Precision.HIGHEST` dots; integer
 outputs are the parity surface and TF32 would flip quantization decisions.
 """
 
+import importlib
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -36,3 +41,26 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
+
+# The reference's public names, loaded lazily as the reference loads them.
+_EXPORTS = {
+    "ID3Tag": ".options",
+    "MP3EncoderOptions": ".options",
+    "Mode": ".options",
+    "EncoderSession": ".encoder",
+    "MP3Encoder": ".encoder",
+}
+
+__all__ = [*sorted(_EXPORTS), "__version__"]
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        value = getattr(importlib.import_module(_EXPORTS[name], __name__), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -135,10 +135,14 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
 
 def _launch(name: str, device: torch.device, *args) -> None:
     """Call the C entry point of kernel `name` on the current stream of
-    `device`; raise on a nonzero CUDA error code."""
+    `device`, with `device` current around the call (the entry points
+    launch, and opt their kernels in, on the device `cudaGetDevice` names,
+    which must be the tensors' card and not whichever card the caller left
+    current); raise on a nonzero CUDA error code."""
     lib = _libs.get(name) or build_kernels()[name]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, f"swm_{name}")(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"swm_{name}")(*args, stream)
     if err != 0:
         msg = lib.swm_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: error {err} ({msg})")

@@ -1,5 +1,5 @@
-"""Batched multi-stream encoding on one device (twin of
-`swiftmp3_tpu.parallel.batch`, without the mesh).
+"""Batched multi-stream encoding on one device or over a data mesh (twin of
+`swiftmp3_tpu.parallel.batch`).
 
 `BatchEncoder` encodes B independent streams in lockstep: PCM rides as
 batch-major [B, T, frame] chunks, the chunk program runs on the device, and
@@ -11,8 +11,15 @@ serving layer, `parallel.pool.StreamPool`). Pinned host buffers with
 non-blocking copies stand in for the JAX version's `device_put` and
 `copy_to_host_async`, so uploads and downloads overlap other work.
 
+Given a mesh (`parallel.mesh`), the batch is cut into one contiguous span a
+mesh position; each position holds its rows' carry on its own device and
+runs the chunk program on them, dispatched in position order from the one
+host thread, and the outputs are joined in position order to render.
+
 `encode_batch` encodes a list of streams, each as one session would;
-`encode_corpus` makes complete files of them ([ID3][Xing][frames]).
+`encode_corpus` makes complete files of them ([ID3][Xing][frames]);
+`encode_batch_multihost` encodes each process's own streams over a mesh
+that spans processes.
 """
 
 from __future__ import annotations
@@ -37,12 +44,24 @@ from ..models.pipeline import (
 )
 from ..native import NativeStreamRenderer
 from ..options import SAMPLES_PER_GRANULE, MP3EncoderOptions
+from .mesh import (
+    carry_sharding,
+    make_mesh,
+    process_batch_bounds,
+    process_count,
+    put_global,
+    to_device,
+)
 
 
 class BatchEncoder:
     """Encode a fixed-size batch of streams on `device` (the card by default)
-    with one chunk program. The outputs of a step stay readable until
-    `drain` is called on them; several steps may be in flight.
+    with one chunk program, or with `mesh` over its positions (`device` is
+    then unused; `batch` is the global batch, which must divide evenly over
+    the mesh, and the encoder holds, takes and renders this process's
+    `process_batch_bounds` rows: all of them in one process). The outputs of
+    a step stay readable until `drain` is called on them; several steps may
+    be in flight.
 
     Host rendering runs the native C++ renderer (a failed build raises), or
     with use_native=False the Python FrameAssembler; both give the same
@@ -57,25 +76,47 @@ class BatchEncoder:
         device="cuda",
         use_native: bool = True,
         render_threads: int | None = None,
+        mesh=None,
     ):
         self._run = make_chunk_fn(options)
         self.options = options
         self.batch = batch
         self.frames_per_step = frames_per_step
-        self.device = resolve_device(device)
-        self._pinned = self.device.type == "cuda"
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            spans = [(self.device, 0, batch)]
+            rows = batch
+        else:
+            self.device = None
+            lo, hi = process_batch_bounds(mesh, batch)
+            rows = hi - lo
+            spans = carry_sharding(mesh).spans(rows)
+        self._spans = spans  # (device, lo, hi) of each local position's rows
         if render_threads is None:
             render_threads = min(os.cpu_count() or 1, 8)
         self._pool = (
             ThreadPoolExecutor(max_workers=render_threads)
-            if render_threads > 1 and batch > 1
+            if render_threads > 1 and rows > 1
             else None
         )
-        self.carry = init_carry(batch, options, self.device)
-        self._init = None  # the fresh carry reset_lanes selects from, built once
+        self._carries = [init_carry(hi - lo, options, dev) for dev, lo, hi in spans]
+        self._init = None  # the fresh carries reset_lanes selects from, built once
         self.use_native = use_native
         # each stream's renderer: NativeStreamRenderer, or FrameAssembler
-        self.renderers = [self._renderer() for _ in range(batch)]
+        self.renderers = [self._renderer() for _ in range(rows)]
+
+    @property
+    def carry(self) -> dict:
+        """The carry of this process's rows, batch-leading (with a mesh, the
+        positions' carries joined in position order on the first one's
+        device)."""
+        if len(self._carries) == 1:
+            return self._carries[0]
+        first = self._carries[0]
+        return {
+            k: torch.cat([c[k].to(first[k].device) for c in self._carries]) for k in first
+        }
 
     def _renderer(self):
         renderer = NativeStreamRenderer if self.use_native else FrameAssembler
@@ -88,13 +129,18 @@ class BatchEncoder:
             self._pool.shutdown(wait=True)
             self._pool = None
 
-    def _put(self, arr) -> torch.Tensor:
-        if isinstance(arr, torch.Tensor):
-            return arr.to(self.device)
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self._pinned:
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+    def _put(self, arr):
+        """Upload a batch-leading input: a tensor, or with a mesh a list of
+        tensors, one a local position."""
+        if self.mesh is None:
+            return to_device(arr, self.device)
+        if isinstance(arr, list):
+            return arr
+        return put_global(self.mesh, arr)
+
+    def _parts(self, arr) -> list:
+        """A batch-leading input as one tensor a local position."""
+        return self._put(arr) if self.mesh is not None else [self._put(arr)]
 
     def prepare(
         self, pcm: np.ndarray, final: np.ndarray, valid: np.ndarray, lookahead=None
@@ -112,25 +158,34 @@ class BatchEncoder:
         arrays or the tensors from prepare(). Under window_sequencing,
         `lookahead` [B, T, 576*ch] is required: each frame's next raw
         granule, zeros past a stream's end. Returns the outputs, their
-        device->host copy already in flight."""
-        la = None
+        device->host copy already in flight (with a mesh of several local
+        positions, {"parts": one output a position})."""
+        n = len(self._spans)
+        la = [None] * n
         if self.options.window_sequencing:
             if lookahead is None:
                 raise ValueError(
                     "window_sequencing needs the per-frame lookahead chunk "
                     "[B, T, 576*ch] (each frame's next raw granule)"
                 )
-            la = self._put(lookahead)
-        self.carry, outs = self._run(
-            self.carry, self._put(pcm), self._put(final), self._put(valid), la
-        )
-        packed = outs["packed"]
-        if not self._pinned:
+            la = self._parts(lookahead)
+        pcm, final, valid = self._parts(pcm), self._parts(final), self._parts(valid)
+        parts = []
+        for k, (dev, _, _) in enumerate(self._spans):
+            self._carries[k], outs = self._run(self._carries[k], pcm[k], final[k], valid[k], la[k])
+            parts.append(self._fetch(outs["packed"], dev))
+        return parts[0] if n == 1 else {"parts": parts}
+
+    @staticmethod
+    def _fetch(packed: torch.Tensor, device: torch.device) -> dict:
+        """Start the copy of a position's packed output to pinned host
+        memory behind an event (on the CPU, the tensor itself)."""
+        if device.type != "cuda":
             return {"packed": packed}
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed, non_blocking=True)
         ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(self.device))
+        ready.record(torch.cuda.current_stream(device))
         return {"packed": host, "ready": ready}
 
     def reset_lanes(self, lanes) -> None:
@@ -139,32 +194,40 @@ class BatchEncoder:
         stream's lane takes the next stream). lanes: [B] bool. Unmasked
         lanes keep their carry bit for bit; an all-False mask does nothing.
         The select is queued on the device after every step already queued
-        and rebinds self.carry, so no queued step reads a tensor it
+        and rebinds the carry, so no queued step reads a tensor it
         writes."""
         mask = np.asarray(lanes, dtype=bool)
         if not mask.any():
             return
         if self._init is None:
-            self._init = init_carry(self.batch, self.options, self.device)
-        m = self._put(mask)
-        self.carry = {
-            k: torch.where(m.view((self.batch,) + (1,) * (v.dim() - 1)), self._init[k], v)
-            for k, v in self.carry.items()
-        }
+            self._init = [init_carry(hi - lo, self.options, dev) for dev, lo, hi in self._spans]
+        for k, (dev, lo, hi) in enumerate(self._spans):
+            if not mask[lo:hi].any():
+                continue
+            m = to_device(mask[lo:hi], dev)
+            init = self._init[k]
+            self._carries[k] = {
+                key: torch.where(m.view((hi - lo,) + (1,) * (v.dim() - 1)), init[key], v)
+                for key, v in self._carries[k].items()
+            }
         for b in np.flatnonzero(mask).tolist():
             self.renderers[b] = self._renderer()
 
     def drain(self, outs: dict, valid: np.ndarray) -> List[bytes]:
         """Render one chunk's outputs to bytes per stream (streams render in
         parallel; the native renderer runs without the interpreter lock)."""
-        if "ready" in outs:
-            outs["ready"].synchronize()
-        outs = fetch_outputs(outs, self.options)
+        parts = outs["parts"] if "parts" in outs else [outs]
+        for p in parts:
+            if "ready" in p:
+                p["ready"].synchronize()
+        packed = parts[0]["packed"] if len(parts) == 1 else torch.cat([p["packed"] for p in parts])
+        outs = fetch_outputs({"packed": packed}, self.options)
         valid = np.asarray(valid)
+        B = valid.shape[0]
         if not self.use_native:
-            emitted = [bytearray() for _ in range(self.batch)]
+            emitted = [bytearray() for _ in range(B)]
             for t in range(valid.shape[1]):
-                for b in range(self.batch):
+                for b in range(B):
                     if valid[b, t]:
                         fr = frame_results_from_outputs(outs, self.options, t, b)
                         emitted[b] += self.renderers[b].push(fr)
@@ -196,11 +259,122 @@ class BatchEncoder:
             )
 
         if self._pool is None:
-            return [render_one(b) for b in range(self.batch)]
-        return list(self._pool.map(render_one, range(self.batch)))
+            return [render_one(b) for b in range(B)]
+        return list(self._pool.map(render_one, range(B)))
 
     def flush(self) -> List[bytes]:
         return [r.flush_buffered() for r in self.renderers]
+
+
+class _Chunks:
+    """The chunk inputs of a list of streams in `rows` batch rows (rows past
+    the streams are empty): as many frames a stream as one session encodes,
+    int16 transport when every stream is int16, and the session's is_final
+    rule. Under window_sequencing each nonempty stream is delayed by one
+    granule (the session's encoder delay) and each frame gets its lookahead
+    granule from the delayed stream."""
+
+    def __init__(self, options: MP3EncoderOptions, streams: Sequence, rows: int, frames_per_step: int):
+        ch = options.channels
+        self.frame_len = options.samples_per_frame * ch  # 1152 (MPEG-1) / 576 (LSF)
+        self.la_len = SAMPLES_PER_GRANULE * ch if options.window_sequencing else 0
+        if self.la_len:
+            streams = [
+                np.concatenate([np.zeros(self.la_len, dtype=np.asarray(s).dtype), np.asarray(s)])
+                if len(s)
+                else np.asarray(s)  # an empty stream stays empty (session parity)
+                for s in streams
+            ]
+        self.streams = streams
+        self.rows = rows
+        self.Tc = frames_per_step
+        self.lengths = np.array([len(s) for s in streams], dtype=np.int64)
+        self.rem = self.lengths % self.frame_len
+        self.n_frames = np.zeros(rows, dtype=np.int64)
+        self.n_frames[: len(streams)] = self.lengths // self.frame_len + (self.rem > 0)
+        # int16 streams ride raw (the device normalizes by 1/32768); mixed
+        # dtypes ride as float32
+        self.pcm_dtype = (
+            np.int16
+            if len(streams) and all(np.asarray(s).dtype == np.int16 for s in streams)
+            else np.float32
+        )
+
+    @property
+    def frames(self) -> int:
+        """The most frames of any stream."""
+        return int(self.n_frames.max()) if self.rows else 0
+
+    def _segment(self, b: int, lo: int, hi: int) -> np.ndarray:
+        seg = np.asarray(self.streams[b][lo:hi])
+        if seg.dtype == np.int16 and self.pcm_dtype == np.float32:
+            seg = seg.astype(np.float32) / np.float32(32768.0)
+        return seg
+
+    def build(self, start: int, t_total: int):
+        """(pcm, final, valid, lookahead or None) of the chunk of frames
+        [start, start + Tc), t_total frames in all."""
+        B, Tc, fl, la_len = self.rows, self.Tc, self.frame_len, self.la_len
+        count = min(Tc, t_total - start)
+        pcm = np.zeros((B, Tc, fl), dtype=self.pcm_dtype)
+        t_idx = start + np.arange(Tc, dtype=np.int64)
+        valid = t_idx[None, :] < self.n_frames[:, None]
+        final = np.zeros((B, Tc), dtype=bool)
+        for b in range(len(self.streams)):
+            length, n_frames = int(self.lengths[b]), int(self.n_frames[b])
+            lo = start * fl
+            hi = min((start + count) * fl, length)
+            if hi > lo:
+                nrows = (hi - lo + fl - 1) // fl
+                buf = np.zeros(nrows * fl, dtype=self.pcm_dtype)
+                buf[: hi - lo] = self._segment(b, lo, hi)
+                pcm[b, :nrows] = buf.reshape(nrows, fl)
+            # session flush parity: a partial last frame is final, and under
+            # window_sequencing (whose delay makes the flush emit at least
+            # one frame) every nonempty stream's last frame is
+            if (self.rem[b] or (la_len and length)) and start <= n_frames - 1 < start + Tc:
+                final[b, n_frames - 1 - start] = True
+        if not la_len:
+            return pcm, final, valid, None
+        la = np.zeros((B, Tc, la_len), dtype=self.pcm_dtype)
+        for b in range(len(self.streams)):
+            for t in range(count):
+                lo = (start + t + 1) * fl
+                hi = min(lo + la_len, int(self.lengths[b]))
+                if hi > lo:
+                    la[b, t, : hi - lo] = self._segment(b, lo, hi)
+        return pcm, final, valid, la
+
+
+def _encode_chunks(enc: BatchEncoder, chunks: _Chunks, t_total: int, n_streams: int) -> List[bytes]:
+    """Run every chunk through `enc` as a 3-stage software pipeline (chunk k
+    computes while chunk k+1 uploads and chunk k-1 renders), then flush;
+    returns the bytes of the first n_streams rows."""
+    out = [bytearray() for _ in range(n_streams)]
+
+    def render(pending) -> None:
+        for b, chunk in enumerate(enc.drain(*pending)[:n_streams]):
+            out[b] += chunk
+
+    starts = list(range(0, t_total, chunks.Tc))
+    pending = prepared = None
+    if starts:
+        pcm, final, valid, la = chunks.build(starts[0], t_total)
+        prepared, prepared_valid = enc.prepare(pcm, final, valid, la), valid
+    for idx in range(len(starts)):
+        outs = enc.step(*prepared)
+        cur_valid = prepared_valid
+        if idx + 1 < len(starts):
+            pcm, final, valid, la = chunks.build(starts[idx + 1], t_total)
+            prepared, prepared_valid = enc.prepare(pcm, final, valid, la), valid
+        if pending is not None:
+            render(pending)
+        pending = (outs, cur_valid)
+    if pending is not None:
+        render(pending)
+    for b, tail in enumerate(enc.flush()[:n_streams]):
+        out[b] += tail
+    return [bytes(o) for o in out]
 
 
 def encode_batch(
@@ -208,115 +382,92 @@ def encode_batch(
     streams: Sequence[np.ndarray],
     device="cuda",
     frames_per_step: int = 64,
+    mesh=None,
+    use_mesh: bool = False,
     _return_encoder: bool = False,
 ):
-    """Encode N independent PCM streams on `device` (the card by default);
-    returns MP3 bytes per stream. Equivalent to one session per stream
-    (encode + flush); streams may differ in length (twin of
-    batch.encode_batch without the mesh). With _return_encoder, returns
+    """Encode N independent PCM streams on `device` (the card by default),
+    or over `mesh` (use_mesh without one: make_mesh(), every card); returns
+    MP3 bytes per stream. Equivalent to one session per stream (encode +
+    flush); streams may differ in length. Over a mesh the batch is padded
+    with empty rows to a multiple of its size. With _return_encoder, returns
     (bytes per stream, the BatchEncoder), whose renderers hold each stream's
     frame count, byte count and frame sizes."""
+    if use_mesh and mesh is None:
+        mesh = make_mesh()
     n_streams = len(streams)
-    ch = options.channels
-    frame_len = options.samples_per_frame * ch
     if options.gapless_info:
-        tail = (GAPLESS_ENCODER_DELAY + GAPLESS_DECODER_DELAY) * ch
+        # EncoderSession.flush parity: each nonempty stream's tail grows by
+        # delay + 529 zeros, so every real sample lands in an emitted frame
+        tail = (GAPLESS_ENCODER_DELAY + GAPLESS_DECODER_DELAY) * options.channels
         streams = [
             np.concatenate([np.asarray(s), np.zeros(tail, dtype=np.asarray(s).dtype)])
             if len(s)
             else np.asarray(s)
             for s in streams
         ]
-    la_len = SAMPLES_PER_GRANULE * ch if options.window_sequencing else 0
-    if la_len:
-        # window_sequencing: the session's one granule of encoder delay; each
-        # frame's lookahead granule comes from the delayed stream
-        streams = [
-            np.concatenate([np.zeros(la_len, dtype=np.asarray(s).dtype), np.asarray(s)])
-            if len(s)
-            else np.asarray(s)
-            for s in streams
-        ]
-    B = n_streams
-    lengths = np.array([len(s) for s in streams], dtype=np.int64)
-    rem = lengths % frame_len
-    n_frames = lengths // frame_len + (rem > 0)
-    T_total = int(n_frames.max()) if n_streams else 0
-    Tc = frames_per_step
-    pcm_dtype = (
-        np.int16
-        if n_streams and all(np.asarray(s).dtype == np.int16 for s in streams)
-        else np.float32
-    )
-
-    def segment(b: int, lo: int, hi: int) -> np.ndarray:
-        seg = np.asarray(streams[b][lo:hi])
-        if seg.dtype == np.int16 and pcm_dtype == np.float32:
-            seg = seg.astype(np.float32) / np.float32(32768.0)
-        return seg
-
-    def build_chunk(start: int):
-        count = min(Tc, T_total - start)
-        pcm = np.zeros((B, Tc, frame_len), dtype=pcm_dtype)
-        t_idx = start + np.arange(Tc, dtype=np.int64)
-        valid = t_idx[None, :] < n_frames[:, None]
-        final = np.zeros((B, Tc), dtype=bool)
-        for b in range(n_streams):
-            lo = start * frame_len
-            hi = min((start + count) * frame_len, int(lengths[b]))
-            if hi > lo:
-                nrows = (hi - lo + frame_len - 1) // frame_len
-                buf = np.zeros(nrows * frame_len, dtype=pcm_dtype)
-                buf[: hi - lo] = segment(b, lo, hi)
-                pcm[b, :nrows] = buf.reshape(nrows, frame_len)
-            # session flush parity: a partial last frame is final, and under
-            # window_sequencing (whose delay makes the flush emit at least
-            # one frame) every nonempty stream's last frame is
-            if (rem[b] or (la_len and lengths[b])) and start <= n_frames[b] - 1 < start + Tc:
-                final[b, int(n_frames[b] - 1 - start)] = True
-        if not la_len:
-            return pcm, final, valid, None
-        la = np.zeros((B, Tc, la_len), dtype=pcm_dtype)
-        for b in range(n_streams):
-            for t in range(count):
-                lo = (start + t + 1) * frame_len
-                hi = min(lo + la_len, int(lengths[b]))
-                if hi > lo:
-                    la[b, t, : hi - lo] = segment(b, lo, hi)
-        return pcm, final, valid, la
-
-    out = [bytearray() for _ in range(n_streams)]
     if not n_streams:
         return ([], None) if _return_encoder else []
-    enc = BatchEncoder(options, B, frames_per_step, device)
+    B = n_streams
+    if mesh is not None:
+        B = -(-n_streams // mesh.size) * mesh.size
+    chunks = _Chunks(options, streams, B, frames_per_step)
+    enc = BatchEncoder(options, B, frames_per_step, device, mesh=mesh)
     try:
-        # 3-stage software pipeline: chunk k computes while chunk k+1
-        # uploads and chunk k-1 renders
-        starts = list(range(0, T_total, Tc))
-        pending = None
-        prepared = None
-        if starts:
-            pcm, final, valid, la = build_chunk(starts[0])
-            prepared, prepared_valid = enc.prepare(pcm, final, valid, la), valid
-        for idx in range(len(starts)):
-            outs = enc.step(*prepared)
-            cur_valid = prepared_valid
-            if idx + 1 < len(starts):
-                pcm, final, valid, la = build_chunk(starts[idx + 1])
-                prepared, prepared_valid = enc.prepare(pcm, final, valid, la), valid
-            if pending is not None:
-                for b, chunk in enumerate(enc.drain(*pending)):
-                    out[b] += chunk
-            pending = (outs, cur_valid)
-        if pending is not None:
-            for b, chunk in enumerate(enc.drain(*pending)):
-                out[b] += chunk
-        for b, tail in enumerate(enc.flush()):
-            out[b] += tail
+        result = _encode_chunks(enc, chunks, chunks.frames, n_streams)
     finally:
         enc.close()
-    result = [bytes(o) for o in out]
     return (result, enc) if _return_encoder else result
+
+
+def encode_batch_multihost(
+    options: MP3EncoderOptions,
+    local_streams: Sequence[np.ndarray],
+    frames_per_step: int = 64,
+    mesh=None,
+) -> List[bytes]:
+    """Multi-process twin of encode_batch (default mesh: make_mesh(), every
+    card of every process).
+
+    Under a process group (`parallel.mesh.initialize_multihost`) every
+    process calls this with ITS OWN list of streams, the same count in
+    every process. The mesh cuts the combined batch over all processes'
+    positions; each process feeds only its `process_batch_bounds` span,
+    runs it on its own positions, and renders only its own streams. The one
+    collective is the longest stream's frame count, gathered over the group
+    so every process runs the same number of steps. Returns this process's
+    MP3 byte streams, in local_streams order. In one process it is
+    encode_batch over the mesh.
+
+    As in the reference, gapless_info adds no tail here (encode_batch and
+    sessions add delay + 529 zeros), so under it the streams differ from
+    sessions.
+    """
+    if mesh is None:
+        mesh = make_mesh()
+    n_proc = process_count()
+    local_dev = mesh.size // n_proc
+    n_local = len(local_streams)
+    B_local = max(-(-n_local // local_dev) * local_dev, local_dev)
+    B_global = B_local * n_proc
+    lo, hi = process_batch_bounds(mesh, B_global)
+    if hi - lo != B_local:
+        raise ValueError(
+            f"this process holds {hi - lo} rows of the mesh's {B_global}, not {B_local}: "
+            "every process needs the same number of mesh positions"
+        )
+    chunks = _Chunks(options, local_streams, B_local, frames_per_step)
+    t_total = chunks.frames
+    if n_proc > 1:
+        mine = torch.tensor([t_total], dtype=torch.int64)
+        every = [torch.zeros_like(mine) for _ in range(n_proc)]
+        torch.distributed.all_gather(every, mine)
+        t_total = int(max(int(t) for t in every))
+    enc = BatchEncoder(options, B_global, frames_per_step, mesh=mesh)
+    try:
+        return _encode_chunks(enc, chunks, t_total, n_local)
+    finally:
+        enc.close()
 
 
 def encode_corpus(
@@ -325,13 +476,16 @@ def encode_corpus(
     tags=None,
     device="cuda",
     frames_per_step: int = 64,
+    mesh=None,
 ) -> List[bytes]:
-    """Encode N streams on `device` (the card by default) into complete MP3
-    files: per stream [ID3v2.3 tag][Xing/Info header][frames], the batched
-    file-encode mode (twin of batch.encode_corpus without the mesh). `tags`:
-    an optional ID3Tag per stream, else options.id3_tag for every one."""
+    """Encode N streams on `device` (the card by default) or over `mesh`
+    into complete MP3 files: per stream [ID3v2.3 tag][Xing/Info
+    header][frames], the batched file-encode mode (twin of
+    batch.encode_corpus). `tags`: an optional ID3Tag per stream, else
+    options.id3_tag for every one."""
     frames, enc = encode_batch(
-        options, streams, device, frames_per_step=frames_per_step, _return_encoder=True
+        options, streams, device, frames_per_step=frames_per_step, mesh=mesh,
+        _return_encoder=True,
     )
     files = []
     for b, audio in enumerate(frames):

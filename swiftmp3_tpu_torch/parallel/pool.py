@@ -1,5 +1,5 @@
-"""Continuous-batching serving layer on one device (twin of
-`swiftmp3_tpu.parallel.pool`, without the mesh): streams join and leave a
+"""Continuous-batching serving layer on one device or over a data mesh
+(twin of `swiftmp3_tpu.parallel.pool`): streams join and leave a
 fixed-lane device batch at any time.
 
 `BatchEncoder` (batch.py) encodes a fixed cohort of streams in lockstep —
@@ -135,7 +135,9 @@ class _Stream:
 
 class StreamPool:
     """Continuous batching over a fixed number of lanes on `device` (the
-    card by default; "cpu" runs the chunk program's plain versions)."""
+    card by default; "cpu" runs the chunk program's plain versions), or with
+    `mesh` over its positions (the lanes cut evenly over them; `device` is
+    then unused)."""
 
     def __init__(
         self,
@@ -145,13 +147,14 @@ class StreamPool:
         device="cuda",
         use_native: bool = True,
         pipelined: bool = True,
+        mesh=None,
     ):
         self.options = options if options is not None else MP3EncoderOptions()
         self.lanes = lanes
         self.T = frames_per_step
         self.pipelined = pipelined
         self.enc = BatchEncoder(
-            self.options, lanes, frames_per_step, device, use_native=use_native
+            self.options, lanes, frames_per_step, device, use_native=use_native, mesh=mesh
         )
         self._streams: Dict[int, _Stream] = {}
         self._lane_owner: List[Optional[int]] = [None] * lanes

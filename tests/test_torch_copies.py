@@ -2,11 +2,13 @@
 the originals, and nothing of the port imports the JAX package (CPU).
 
 - An AST scan of every module of `swiftmp3_tpu_torch`, of `chip_smoke.py`,
-  `tools/torch_profile_step.py` and the numpy-only test helpers they import:
+  `tools/torch_profile_step.py`, the port's examples and the numpy-only
+  test helpers they import:
   none imports `jax`, `swiftmp3_tpu` (or a module of it), `tests.fixture_lib`
   or a test module.
 - Every public array and table of `swiftmp3_tpu_torch.tables` equals the
-  reference's bit for bit; the verbatim copies are byte-identical sources.
+  reference's bit for bit; the verbatim copies are byte-identical sources
+  (`utils.profiling.ThroughputMeter` the class alone).
 - Both packages' `MP3EncoderOptions` agree in every field and derived
   property on the fixture rows' keyword arguments and the presets.
 - The port's native renderer and the reference's render the same chunk
@@ -44,7 +46,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_files() -> list[str]:
-    files = ["chip_smoke.py", "tools/torch_profile_step.py", "tests/torch_inputs.py", "tests/util.py"]
+    files = ["chip_smoke.py", "tools/torch_profile_step.py", "tests/torch_inputs.py", "tests/util.py",
+             "examples/torch_podcast_corpus.py", "examples/torch_live_serving.py"]
     pkg = os.path.join(ROOT, "swiftmp3_tpu_torch")
     for dirpath, _, names in os.walk(pkg):
         files += [
@@ -91,11 +94,14 @@ def test_port_file_imports_nothing_of_the_jax_package(relpath):
 
 
 def test_the_import_scan_covers_the_entry_points():
-    """The command line, the serving pool and the utilities are scanned."""
+    """The command line, the serving pool, the mesh, the utilities and the
+    port's examples are scanned."""
     files = set(_port_files())
     want = {"swiftmp3_tpu_torch/cli.py", "swiftmp3_tpu_torch/__main__.py",
             "swiftmp3_tpu_torch/parallel/pool.py", "swiftmp3_tpu_torch/parallel/batch.py",
-            "swiftmp3_tpu_torch/utils/__init__.py", "swiftmp3_tpu_torch/utils/wav.py"}
+            "swiftmp3_tpu_torch/utils/__init__.py", "swiftmp3_tpu_torch/utils/wav.py",
+            "swiftmp3_tpu_torch/parallel/mesh.py", "swiftmp3_tpu_torch/utils/profiling.py",
+            "examples/torch_podcast_corpus.py", "examples/torch_live_serving.py"}
     assert want <= files
 
 
@@ -254,6 +260,21 @@ def test_verbatim_copy_is_byte_identical(relpath):
         ref, got = ref.split(b'"""', 2)[2], got.split(b'"""', 2)[2]
         assert len(ref) > 100
     assert got == ref
+
+
+def _meter_source(relpath: str) -> str:
+    """The ThroughputMeter class of a profiling module, decorator to the
+    end of its body."""
+    with open(os.path.join(ROOT, relpath)) as fh:
+        text = fh.read()
+    start = text.index("@dataclass\nclass ThroughputMeter")
+    return text[start : text.index("\n\n\n", start)]
+
+
+def test_throughput_meter_is_a_verbatim_copy():
+    ref = _meter_source("swiftmp3_tpu/utils/profiling.py")
+    assert len(ref) > 800
+    assert _meter_source("swiftmp3_tpu_torch/utils/profiling.py") == ref
 
 
 def _option_kwargs(kw: dict) -> dict:

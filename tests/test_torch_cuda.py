@@ -7,7 +7,8 @@ entry points on a CUDA device against the same entry points on the CPU,
 compat, spec_strict and hq, and the serving pool and reset_lanes on the card
 against sessions on the card; K1, K2 and K3 on the LSF and free-format
 paths' inputs and odd LSF chunks, and LSF rows on the card with the CPU
-filterbank and MDCT against the JAX bytes.
+filterbank and MDCT against the JAX bytes; K1 and K2 on a card other than
+the current one (skips below two cards).
 
 Every test here needs a CUDA card and skips without one (the kernels have no
 CPU mode). The file imports nothing of JAX and nothing of the JAX package, so
@@ -543,3 +544,26 @@ def test_lsf_on_the_card_with_the_cpu_filterbank_matches_the_jax_bytes(cuda_devi
         ),
     )
     assert both() == refs
+
+
+def test_kernels_launch_on_the_tensors_card(cuda_device):
+    """K1 and K2 on the last card while the first is current (a mesh
+    position's tensors away from the current device): each wrapper launches
+    under its tensors' device, bit-exact against its plain version there."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards, this host has {n}")
+    dev = torch.device("cuda", n - 1)
+    torch.cuda.set_device(0)
+    mag, g0 = sweep_input(4099)
+    m, g = torch.from_numpy(mag).to(dev), torch.from_numpy(g0).to(dev)
+    bits, bv = kernels.rate_sweep(m, g)
+    pb, pv = kernels.rate_sweep_plain(m, g)
+    ch, nb = pack_input(2048, 1152, 894)
+    c, nbits = torch.from_numpy(ch).to(dev), torch.from_numpy(nb).to(dev)
+    by, tot = kernels.pack(c, nbits, 894)
+    pby, ptot = kernels.pack_plain(c, nbits, 894)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0 and bits.device == by.device == dev
+    assert torch.equal(bits, pb) and torch.equal(bv, pv)
+    assert torch.equal(by, pby) and torch.equal(tot, ptot)

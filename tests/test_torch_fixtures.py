@@ -119,6 +119,9 @@ def test_golden_inputs_cover_the_frozen_files():
     want += [ti.jax_path(row) for row in (*ti.LSF_ROWS, *ti.FF_ROWS)]
     want += [ti.jax_path(f"{row}_step{ti.ODD_STEP}") for row in (*ti.LSF_ROWS, *ti.FF_ROWS)]
     want += [ti.checkpoint_path(side, ti.LSF_CHECKPOINT[0]) for side in ("jax", "port")]
+    for name in ti.MESH_OPTIONS:
+        want += [ti.jax_path(f"mesh_{name}_{i}") for i in range(len(ti.mesh_streams(name)))]
+    want += [ti.jax_path(f"multihost_{dtype}") for dtype in ti.multihost_streams()]
     assert frozen == sorted(os.path.basename(p) for p in want)
 
 

@@ -6,7 +6,8 @@ mode, as the JAX package's own tests run them; K3's (the polyphase
 filterbank) within the JAX package's own K3 tolerance, 2e-5, against the
 stepwise filterbank and the Pallas kernel. The CUDA kernels themselves run
 only on a card (tests/test_torch_cuda.py). A mocked launch shows that a CUDA
-tensor never reaches a plain version, and a mocked nvcc that a failed build
+tensor never reaches a plain version, a mocked library that the C call runs
+with the tensors' device current, and a mocked nvcc that a failed build
 raises; K2's launch plan (its grid, tiles and shared memory) is held to the
 constants of its CUDA source.
 """
@@ -477,3 +478,50 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path, how):
     with pytest.raises(RuntimeError, match=match):
         kernels.build_kernels()
     assert kernels._libs == {}
+
+
+def test_launch_runs_the_c_call_under_the_tensors_device(monkeypatch):
+    """kernels._launch makes the tensors' device current around the C call
+    (the entry points launch on the device cudaGetDevice names), takes that
+    device's stream inside the guard, and leaves the guard after the call;
+    a nonzero code still raises."""
+    order = []
+
+    class Guard:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            order.append(("enter", self.device))
+
+        def __exit__(self, *exc):
+            order.append(("exit", self.device))
+
+    class Stream:
+        cuda_stream = 77
+
+    class Lib:
+        code = 0
+
+        def swm_rate_sweep(self, *args):
+            order.append(("call", args))
+            return self.code
+
+        def swm_error_string(self, code):
+            return b"refused"
+
+    def current_stream(device):
+        order.append(("stream", device))
+        return Stream()
+
+    lib = Lib()
+    dev = torch.device("cuda", 3)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    monkeypatch.setitem(kernels._libs, "rate_sweep", lib)
+    kernels._launch("rate_sweep", dev, 1, 2)
+    assert order == [("enter", dev), ("stream", dev), ("call", (1, 2, 77)), ("exit", dev)]
+    lib.code = 98
+    with pytest.raises(RuntimeError, match="error 98 .refused."):
+        kernels._launch("rate_sweep", dev, 1, 2)
+    assert order[-1] == ("exit", dev)

@@ -31,7 +31,7 @@ from swiftmp3_tpu_torch.io.id3 import build_id3_tag
 from swiftmp3_tpu_torch.models import pipeline as tpipe
 from swiftmp3_tpu_torch.native import NativeStreamRenderer
 from swiftmp3_tpu_torch.options import ID3Tag, MP3EncoderOptions
-from swiftmp3_tpu_torch.parallel import BatchEncoder, StreamPool, encode_corpus
+from swiftmp3_tpu_torch.parallel import BatchEncoder, StreamPool, encode_corpus, make_mesh
 from swiftmp3_tpu_torch.parallel import batch as tbatch
 from swiftmp3_tpu_torch.utils import read_wav, write_wav
 
@@ -520,9 +520,12 @@ def test_wav_round_trip(tmp_path):
 
 def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """StreamPool, encode_corpus and the command line run on "cuda" unless
-    told otherwise, and with no card they raise; the pool takes no mesh."""
+    told otherwise, and with no card they raise; the pool and encode_corpus
+    take no mesh unless given one, and the default mesh (every card) raises
+    without a card too."""
     for f in (StreamPool, encode_corpus):
         assert inspect.signature(f).parameters["device"].default == "cuda"
+        assert inspect.signature(f).parameters["mesh"].default is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     o = MP3EncoderOptions(mode="stereo")
     pcm = ti.make_signal("sine", 0.1, 44100, 2, 0)
@@ -534,5 +537,5 @@ def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
     ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()
-    with pytest.raises(TypeError):
-        StreamPool(o, device="cpu", mesh=None)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        StreamPool(o, mesh=make_mesh())

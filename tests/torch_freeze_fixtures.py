@@ -5,8 +5,8 @@ hold it to.
 
 Run once on the CPU, from the repository root; no test runs it (it compiles
 JAX hq chunk programs, which the fast tier never does). The parts are hq,
-strict, checkpoint, flags, depth_checkpoint, corpus, cli, dc, is, lsf and ff
-(all when none is named). It writes under tests/fixtures/torch/:
+strict, checkpoint, flags, depth_checkpoint, corpus, cli, dc, is, lsf, ff
+and mesh (all when none is named). It writes under tests/fixtures/torch/:
 
 - golden_<preset>_<stem>.mp3: the golden numpy backend's streams under each
   hq configuration (tests/torch_inputs.HQ_OPTIONS) for the hq fixture rows
@@ -34,7 +34,12 @@ strict, checkpoint, flags, depth_checkpoint, corpus, cli, dc, is, lsf and ff
   encode_batch bytes of the row at torch_inputs.ODD_STEP frames a step, and
   with part lsf checkpoint_jax_<row>.npz
   and checkpoint_port_<row>.npz in the middle of torch_inputs.LSF_CHECKPOINT's
-  row, checked as above.
+  row, checked as above;
+- jax_mesh_<set>_<i>.mp3: the JAX package's encode_batch over its 8-position
+  CPU mesh of each stream of each set of torch_inputs.MESH_OPTIONS (part
+  mesh), and jax_multihost_<dtype>.mp3 its single-process
+  encode_batch_multihost of each of torch_inputs.multihost_streams(). The
+  module sets --xla_force_host_platform_device_count=8 before JAX starts.
 
 It prints, for every frozen JAX stream, how many frames the port's CPU
 session encodes differently (the port's tests hold it to these files).
@@ -46,6 +51,13 @@ import os
 import sys
 import tempfile
 
+# The mesh part runs the JAX package over 8 virtual CPU devices, as
+# tests/conftest.py sets them; XLA reads the flag when its CPU client starts.
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (
+        os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
+    ).strip()
+
 import numpy as np
 import torch
 
@@ -54,7 +66,7 @@ from swiftmp3_tpu.encoder import EncoderSession
 from swiftmp3_tpu.options import ID3Tag as JaxID3Tag
 from swiftmp3_tpu.options import MP3EncoderOptions as JaxOptions
 from swiftmp3_tpu.options import Mode
-from swiftmp3_tpu.parallel import encode_batch, encode_corpus
+from swiftmp3_tpu.parallel import encode_batch, encode_batch_multihost, encode_corpus, make_mesh
 from swiftmp3_tpu.utils.wav import write_wav
 from swiftmp3_tpu_torch.encoder import new_session
 from swiftmp3_tpu_torch.options import MP3EncoderOptions
@@ -192,6 +204,29 @@ def freeze_cli() -> None:
             write(ti.jax_path("cli"), fh.read())
 
 
+def freeze_mesh() -> None:
+    """The JAX package's encode_batch over its 8-position CPU mesh for each
+    set of torch_inputs.mesh_streams, and its single-process
+    encode_batch_multihost of each of torch_inputs.multihost_streams."""
+    mesh = make_mesh()
+    assert mesh.devices.size == 8, mesh.devices.size
+    for name, (factory, kw) in ti.MESH_OPTIONS.items():
+        o = ti.build_options(factory, kw, MP3EncoderOptions)
+        jo = ti.build_options(factory, kw, JaxOptions, Mode)
+        streams = ti.mesh_streams(name)
+        got = encode_batch(jo, streams, frames_per_step=ti.MESH_STEP, mesh=mesh)
+        port = encode_batch_port(o, streams, "cpu", frames_per_step=ti.MESH_STEP)
+        for i, data in enumerate(got):
+            write(ti.jax_path(f"mesh_{name}_{i}"), data)
+            if data:
+                print(f"  port: {frame_flips(port[i], data)}", flush=True)
+    factory, kw = ti.MESH_OPTIONS["mono"]
+    jo = ti.build_options(factory, kw, JaxOptions, Mode)
+    for name, pcm in ti.multihost_streams().items():
+        write(ti.jax_path(f"multihost_{name}"),
+              encode_batch_multihost(jo, [pcm], frames_per_step=ti.MESH_STEP)[0])
+
+
 PARTS = {
     "hq": lambda: freeze_presets(ti.HQ_OPTIONS, lambda preset: ti.hq_streams()),
     "strict": freeze_strict,
@@ -206,6 +241,7 @@ PARTS = {
     "is": lambda: freeze_presets(["hq_is_32k", "strict_is_32k"], ti.dc_is_streams),
     "lsf": freeze_lsf,
     "ff": lambda: freeze_rows(ti.FF_ROWS),
+    "mesh": freeze_mesh,
 }
 
 

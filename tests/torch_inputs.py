@@ -533,6 +533,48 @@ def cli_pcm() -> np.ndarray:
     return make_signal(kind, seconds, sr, channels, seed)
 
 
+# --- The mesh and the multi-process batch (ROADMAP Queue 1 item 12) ------------
+
+# The JAX package's encode_batch over its 8-position CPU mesh
+# (make_mesh() under --xla_force_host_platform_device_count=8), frames_per_step
+# MESH_STEP, is frozen as jax_mesh_<set>_<i>.mp3 for each stream of each set of
+# mesh_streams(); its single-process encode_batch_multihost of each of
+# multihost_streams() as jax_multihost_<dtype>.mp3. (options kwargs, streams)
+# per set: tests/test_parallel.py's compat mono streams (:18-33), and an hq
+# joint-stereo set with each frame's lookahead granule (unequal lengths, an
+# empty stream, an int16 stream among float ones, an exact frame multiple).
+MESH_STEP = 4
+MESH_OPTIONS = {
+    "mono": (None, dict(mode="mono", bitrate_kbps=128, sample_rate=44100)),
+    "hq": ("hq", dict(mode="joint_stereo", bitrate_kbps=128, sample_rate=44100)),
+}
+
+
+def mesh_streams(name: str) -> list:
+    if name == "mono":  # a copy of tests/test_parallel.py's
+        rng = np.random.default_rng(0)
+        return [
+            (rng.standard_normal(1152 * (2 + i % 3) + (211 * i) % 1000) * 0.4).astype(np.float32)
+            for i in range(5)
+        ]
+    return [
+        make_signal("burst", 0.15, 44100, 2, 51),
+        np.zeros(0, dtype=np.float32),
+        (make_signal("mix", 0.08, 44100, 2, 52) * 32767).astype(np.int16),
+        np.resize(make_signal("noise", 0.2, 44100, 2, 53), 2 * 1152 * 5),
+        make_signal("mix", 0.1, 44100, 2, 54),
+    ]
+
+
+def multihost_streams() -> dict:
+    """A copy of tests/test_parallel.py's encode_batch_multihost streams
+    (:84-97), mono, under MESH_OPTIONS["mono"]: {dtype name: PCM}."""
+    rng = np.random.default_rng(11)
+    f32 = (rng.standard_normal(1152 * 3 + 200) * 0.4).astype(np.float32)
+    i16 = (rng.standard_normal(1152 * 2 + 900) * 8000).astype(np.int16)
+    return {"float32": f32, "int16": i16}
+
+
 def save_session_state(path: str, state: dict, **extra) -> None:
     """An EncoderSession.state_dict() (either package's) as an .npz of plain
     arrays; `extra` arrays ride along."""
