@@ -106,6 +106,22 @@ reference streams are committed files). Phases:
      mesh on cuda:0) and are structurally equal to the one-card run, flips
      pinned; each process's wall times and launch counts, and the one
      process's wall time;
+  4m. the graft entry ([entry]; swiftmp3_tpu_torch/graft_entry.py, the
+     twin of __graft_entry__.py): entry()'s chunk program called twice on
+     the card (cold, warm), K1 and K2 bit-exact against their plain
+     versions on its first inputs, its outputs against entry("cpu") and
+     the JAX entry's frozen outputs (tests/fixtures/torch/jax_entry.npz);
+     dryrun_multichip(4) and dryrun_multichip(every card) at the
+     reference's shapes against the frozen JAX dry runs; then the bulk
+     shape, dryrun_multichip(4, batch=256, frames=128) (64 streams a
+     position on cuda:0: compat joint-stereo VBR at quality 3, then the hq
+     preset) against dryrun_multichip(1, ...) of the same rows, the dry
+     run's own checks holding at that size, with K1 and K2 bit-exact on a
+     position's first inputs ([K1 entry] N = 32 768, [K2 entry] F = 8192 at
+     the VBR cap 1104) with their times and bounds; every call's launches
+     checked (K1 once a position, K2 twice) and its wall s printed; frames
+     that differ anywhere are pinned by ENTRY_FLIP_CEILING and
+     ENTRY_BULK_FLIP_CEILING;
   5. parity: the 8 compat fixture rows through new_session(o) against the
      JAX backend's committed streams (tests/fixtures/*.tpu.mp3), and 2
      main-path streams and the ULP-telemetry corpus against the golden numpy
@@ -126,8 +142,8 @@ reference streams are committed files). Phases:
      backend's frozen session, within a ceiling per row, and exact with the
      CPU filterbank and MDCT;
   6. a `kernels` JSON line (K1 and K2 as the compat main path, the serving
-     pool, the LSF and free-format paths, the mesh runs and the two
-     processes launched them, K3 as the filterbank stage did), the card
+     pool, the LSF and free-format paths, the mesh runs, the two processes
+     and the graft entry launched them, K3 as the filterbank stage did), the card
      line, and the result line. Each phase's wall time is printed
      ([time]).
 
@@ -244,7 +260,16 @@ LSF_JAX_FLIP_CEILING = {
 # suite's rule max(2x, +2) from the card's count (H100 80GB HBM3, 700 W: 0
 # of 65 536 both ways).
 MESH_FLIP_CEILING = 2
-MESH_POSITIONS = 4  # [mesh]: positions on cuda:0, 64 streams each
+MESH_POSITIONS = 4  # [mesh] and [entry]: positions on cuda:0, 64 streams each
+# [entry]: the frames (stream, time) in which any fetched field or main_data
+# byte of a card run differs, under the telemetry suite's rule max(2x, +2)
+# from the card's count: the entry step against entry("cpu") and against the
+# JAX entry, and each small dry run's steps against the JAX dry run's (H100
+# 80GB HBM3, 700 W: 0 of 32 frames both ways, 0 of 4 and 0 of 16 a step);
+# the bulk 4-position dry run against the 1-position one, both steps (0 of
+# 65 536).
+ENTRY_FLIP_CEILING = 2
+ENTRY_BULK_FLIP_CEILING = 2
 MULTIHOST_TIMEOUT_S = 300  # [multihost]: each worker, start-up included
 
 STEPS_MAIN = 2
@@ -1166,6 +1191,95 @@ def _multihost(opts, audio, one_card: list, card: str) -> dict:
     return {k: sum(c[k] for r in reports for c in r["launches"]) for k in ("rate_sweep", "pack")}
 
 
+def _entry_phase(card: str) -> dict:
+    """Phase 4m: the graft entry (swiftmp3_tpu_torch/graft_entry.py) on the
+    card; returns the launch counts of its driven calls, summed (the
+    comparisons with the plain versions not counted)."""
+    import torch
+
+    from swiftmp3_tpu_torch.graft_entry import dryrun_multichip, entry
+    from swiftmp3_tpu_torch.models.pipeline import fetch_outputs
+    from swiftmp3_tpu_torch.ops import kernels
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions, Mode
+    from tests.torch_inputs import B_MAIN, T_MAIN, differing_frames, frozen_entry
+
+    total = {"rate_sweep": 0, "pack": 0}
+
+    def driven(call, want: tuple, what: str):
+        """call() with the launch counts set to 0 just before and read just
+        after; (its result, wall s)."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (kernels.LAUNCHES["rate_sweep"], kernels.LAUNCHES["pack"])
+        if got != want:
+            raise AssertionError(f"[entry] {what}: launches K1/K2 {got}, want {want}")
+        total["rate_sweep"] += got[0]
+        total["pack"] += got[1]
+        return out, wall
+
+    def check_flips(flips: int, ceiling: int, what: str) -> None:
+        if flips > ceiling:
+            raise AssertionError(f"[entry] {what}: {flips} frames differ (ceiling {ceiling})")
+
+    dev = torch.device("cuda")
+    o = MP3EncoderOptions(mode=Mode.STEREO, bitrate_kbps=128)
+    fn, args = entry()
+    with _FirstInputs() as first:
+        (_, outs), cold = driven(lambda: fn(*args), (1, 1), "entry, cold")
+    (_, again), warm = driven(lambda: fn(*args), (1, 1), "entry, warm")
+    got = fetch_outputs(outs, o)
+    if differing_frames(fetch_outputs(again, o), got):
+        raise AssertionError("[entry] the warm call's outputs differ from the cold call's")
+    c, nb, cap = first.pack
+    by, tot = kernels.pack(c, nb, cap)
+    pby, ptot = kernels.pack_plain(c, nb, cap)
+    err = max(_sweep_on(first.sweep, dev), int((by.int() - pby.int()).abs().max()),
+              int((tot - ptot).abs().max()))
+    if err:
+        raise AssertionError(f"[entry] K1/K2 disagree with their plain versions on the entry's inputs ({err})")
+    cpu_fn, cpu_args = entry("cpu")
+    flips_cpu = differing_frames(got, fetch_outputs(cpu_fn(*cpu_args)[1], o))
+    flips_jax = differing_frames(got, frozen_entry("entry")[0])
+    n_frames = got["part23"].shape[0] * got["part23"].shape[1]
+    print(f"[entry] entry(): 8 streams x 4 frames, 128 kbps CBR stereo, {card}: cold {1e3 * cold:.2f} ms, "
+          f"warm {1e3 * warm:.2f} ms a step (wall, synchronised); K1 N={first.sweep[1].numel()} and K2 "
+          f"F={c.shape[0]} P={c.shape[1]} cap={cap} bit-exact on its first inputs; frames differing vs "
+          f"entry('cpu') {flips_cpu}/{n_frames}, vs the JAX entry {flips_jax}/{n_frames} (ceiling "
+          f"{ENTRY_FLIP_CEILING})", flush=True)
+    check_flips(flips_cpu, ENTRY_FLIP_CEILING, "entry vs entry('cpu')")
+    check_flips(flips_jax, ENTRY_FLIP_CEILING, "entry vs the JAX entry")
+
+    for n in sorted({MESH_POSITIONS, torch.cuda.device_count()}):
+        res, wall = driven(lambda: dryrun_multichip(n), (n, 2 * n), f"dryrun_multichip({n})")
+        # frozen at ENTRY_DRYRUN_POSITIONS: a host of another card count raises here
+        flips = {k: differing_frames(res[k][0], frozen_entry(f"dry{n}.{k}")[0]) for k in res}
+        print(f"[entry] dryrun_multichip({n}) batch {2 * n}, {card}: {wall:.3f} s; frames differing vs "
+              f"the JAX dry run {flips} of {2 * n * 2} a step (ceiling {ENTRY_FLIP_CEILING})", flush=True)
+        for k, f in flips.items():
+            check_flips(f, ENTRY_FLIP_CEILING, f"dryrun_multichip({n}) {k}")
+
+    B, T = B_MAIN, T_MAIN
+    with _FirstInputs() as first:
+        four, wall4 = driven(lambda: dryrun_multichip(MESH_POSITIONS, batch=B, frames=T),
+                             (MESH_POSITIONS, 2 * MESH_POSITIONS), "the bulk dry run over 4 positions")
+    one, wall1 = driven(lambda: dryrun_multichip(1, batch=B, frames=T), (1, 2),
+                        "the bulk dry run over 1 position")
+    flips = {k: differing_frames(four[k][0], one[k][0]) for k in four}
+    print(f"[entry] bulk dryrun_multichip, {B} streams x {T} frames (compat joint-stereo VBR q3, then hq "
+          f"joint stereo), {card}: {MESH_POSITIONS} positions on cuda:0 ({B // MESH_POSITIONS} streams "
+          f"each) {wall4:.3f} s, 1 position {wall1:.3f} s (wall, inputs drawn and outputs fetched "
+          f"included); the dry run's checks hold; frames differing, 4 positions vs 1: {flips} of "
+          f"{B * T} a step (ceiling {ENTRY_BULK_FLIP_CEILING} over both)", flush=True)
+    check_flips(sum(flips.values()), ENTRY_BULK_FLIP_CEILING, "the bulk dry run, 4 positions vs 1")
+    _check_sweep(first.sweep, "entry", card)
+    _check_pack(first.pack, "entry", card)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1533,6 +1647,8 @@ def main() -> int:
     multihost_launches = _multihost(opts, audio, one_card, card)
     del one_card
     phase_done("multihost")
+    entry_launches = _entry_phase(card)
+    phase_done("entry")
 
     # ---- 5. parity ---------------------------------------------------------
     fixture_flips, fixture_frames = 0, 0
@@ -1674,11 +1790,11 @@ def main() -> int:
          "swiftmp3_tpu/ops/pallas_kernels.py:77"),
     ]
     # K1 and K2 counted on the main path, the serving pool, the LSF and
-    # free-format paths, the mesh runs and the two processes, K3 on the
-    # filterbank stage
+    # free-format paths, the mesh runs, the two processes and the graft
+    # entry, K3 on the filterbank stage
     launches = {
         n: main_launches[n] + serve_launches[n] + sum(v[n] for v in lsf_launches.values())
-        + mesh_launches[n] + multihost_launches[n]
+        + mesh_launches[n] + multihost_launches[n] + entry_launches[n]
         for n in ("rate_sweep", "pack")
     }
     launches["polyphase"] = k3_launches

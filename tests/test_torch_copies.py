@@ -94,10 +94,11 @@ def test_port_file_imports_nothing_of_the_jax_package(relpath):
 
 
 def test_the_import_scan_covers_the_entry_points():
-    """The command line, the serving pool, the mesh, the utilities and the
-    port's examples are scanned."""
+    """The command line, the serving pool, the mesh, the utilities, the
+    graft entry and the port's examples are scanned."""
     files = set(_port_files())
     want = {"swiftmp3_tpu_torch/cli.py", "swiftmp3_tpu_torch/__main__.py",
+            "swiftmp3_tpu_torch/graft_entry.py",
             "swiftmp3_tpu_torch/parallel/pool.py", "swiftmp3_tpu_torch/parallel/batch.py",
             "swiftmp3_tpu_torch/utils/__init__.py", "swiftmp3_tpu_torch/utils/wav.py",
             "swiftmp3_tpu_torch/parallel/mesh.py", "swiftmp3_tpu_torch/utils/profiling.py",

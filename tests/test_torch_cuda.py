@@ -8,7 +8,8 @@ compat, spec_strict and hq, and the serving pool and reset_lanes on the card
 against sessions on the card; K1, K2 and K3 on the LSF and free-format
 paths' inputs and odd LSF chunks, and LSF rows on the card with the CPU
 filterbank and MDCT against the JAX bytes; K1 and K2 on a card other than
-the current one (skips below two cards).
+the current one (skips below two cards); the graft entry's step on the card
+(`graft_entry.entry()`) against the CPU's, and its dry run.
 
 Every test here needs a CUDA card and skips without one (the kernels have no
 CPU mode). The file imports nothing of JAX and nothing of the JAX package, so
@@ -57,6 +58,9 @@ PACK_SHAPES = [
     (2048, 4176, 790), (2048, 2088, 806), (2048, 2088, 1014), (2048, 4176, 582),
     # the LSF and free-format paths' slots and caps
     (2048, 576, 444), (2048, 936, 444), (2048, 1044, 460), (2048, 2088, 982),
+    # the dry run's compat joint-stereo VBR step (quality 3), a bulk
+    # position's frames (chip_smoke.py [K2 entry])
+    (8192, 1152, 1104),
 ]
 # K2's edges (kernels.pack_plan: a grid of at most 264 blocks of 8 warps at
 # cap 894, a warp a frame at a time; tiles of K2_TILE = 512 slots staged by
@@ -567,3 +571,33 @@ def test_kernels_launch_on_the_tensors_card(cuda_device):
     assert torch.cuda.current_device() == 0 and bits.device == by.device == dev
     assert torch.equal(bits, pb) and torch.equal(bv, pv)
     assert torch.equal(by, pby) and torch.equal(tot, ptot)
+
+
+def test_entry_on_the_card_launches_k1_and_k2_and_matches_the_cpu(cuda_device):
+    """graft_entry.entry() on the card: one call launches K1 and K2 once
+    each, and its fetched outputs equal entry("cpu")'s (flips within
+    chip_smoke.py's ENTRY_FLIP_CEILING); the dry run over two positions on
+    the card passes its own checks and launches K1 once and K2 twice a
+    position."""
+    from swiftmp3_tpu_torch.graft_entry import dryrun_multichip, entry
+    from swiftmp3_tpu_torch.models.pipeline import fetch_outputs
+    from swiftmp3_tpu_torch.options import Mode
+
+    from chip_smoke import ENTRY_FLIP_CEILING
+    from .torch_inputs import differing_frames
+
+    o = MP3EncoderOptions(mode=Mode.STEREO, bitrate_kbps=128)
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in [*args[0].values(), *args[1:]])
+    kernels.build_kernels()
+    kernels.reset_launch_counts()
+    _, outs = fn(*args)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["rate_sweep"], kernels.LAUNCHES["pack"]) == (1, 1)
+    cpu_fn, cpu_args = entry("cpu")
+    _, cpu_outs = cpu_fn(*cpu_args)
+    assert differing_frames(fetch_outputs(outs, o), fetch_outputs(cpu_outs, o)) <= ENTRY_FLIP_CEILING
+    kernels.reset_launch_counts()
+    got = dryrun_multichip(2)
+    assert (kernels.LAUNCHES["rate_sweep"], kernels.LAUNCHES["pack"]) == (2, 4)
+    assert sorted(got) == ["hq", "vbr"] and got["vbr"][0]["main_data"].shape == (4, 2, 1104)

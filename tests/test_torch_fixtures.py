@@ -122,6 +122,7 @@ def test_golden_inputs_cover_the_frozen_files():
     for name in ti.MESH_OPTIONS:
         want += [ti.jax_path(f"mesh_{name}_{i}") for i in range(len(ti.mesh_streams(name)))]
     want += [ti.jax_path(f"multihost_{dtype}") for dtype in ti.multihost_streams()]
+    want.append(ti.ENTRY_FIXTURE)
     assert frozen == sorted(os.path.basename(p) for p in want)
 
 

@@ -1,7 +1,9 @@
-"""The port's package surface on the CPU: the reference's names at package
-level, loaded lazily; `utils.profiling` (the throughput meter on the
-reference's own case, a Chrome trace of a CPU op with a named span); and the
-port's two examples run end to end at a tiny size, their streams walked.
+"""The port's package surface on the CPU: every module and public name of the
+reference has its counterpart in the port, or a reason it has none; the
+reference's names at package level, loaded lazily; `utils.profiling` (the
+throughput meter on the reference's own case, a Chrome trace of a CPU op
+with a named span); and the port's two examples run end to end at a tiny
+size, their streams walked.
 
 Nothing here imports JAX (the reference's name lists are read from its
 sources).
@@ -37,6 +39,137 @@ def _exports(relpath: str) -> set:
         if isinstance(node, ast.Assign) and node.targets[0].id == "_EXPORTS":
             return set(ast.literal_eval(node.value))
     raise AssertionError(f"{relpath} has no _EXPORTS")
+
+
+# Reference modules the port has no module for, each with its reason.
+NOT_PORTED = {
+    "swiftmp3_tpu/decoder/": "the reference's decoder: only tests run it (port tests import it)",
+    "swiftmp3_tpu/ops/reference.py": "the numpy golden encoder: only tests run it",
+    "swiftmp3_tpu/utils/quality.py": "test-side quality measures in numpy: port tests import them",
+    "swiftmp3_tpu/utils/external.py": "test-side ctypes bindings of libmp3lame and libmpg123",
+}
+# Reference modules whose counterpart lies at another path.
+MOVED = {
+    "__graft_entry__.py": "swiftmp3_tpu_torch/graft_entry.py",
+    "swiftmp3_tpu/ops/pallas_kernels.py": "swiftmp3_tpu_torch/ops/kernels.py",
+}
+# The Pallas kernels' CUDA sources (K1, K2, K3).
+CUDA_SOURCES = {
+    "rate_sweep_pallas": "swiftmp3_tpu_torch/ops/csrc/rate_sweep.cu",
+    "pack_pallas": "swiftmp3_tpu_torch/ops/csrc/pack.cu",
+    "polyphase_chunk_pallas": "swiftmp3_tpu_torch/ops/csrc/polyphase.cu",
+}
+_KERNELS = "swiftmp3_tpu_torch/ops/kernels.py"
+_PORT_DSP = "swiftmp3_tpu_torch/ops/dsp.py"
+_PORT_PIPELINE = "swiftmp3_tpu_torch/models/pipeline.py"
+# Public names of a ported module whose counterpart has another name or
+# module: reference module -> {name: "port module:name"}.
+RENAMED = {
+    "swiftmp3_tpu/models/pipeline.py": {"TPUBackend": f"{_PORT_PIPELINE}:TorchBackend"},
+    "swiftmp3_tpu/ops/dsp.py": {
+        "MAX_FRAME_MAIN_BITS": f"{_PORT_PIPELINE}:MAX_FRAME_MAIN_BITS",
+        "ONSET_RATIO_F": f"{_PORT_DSP}:ONSET_RATIO",
+        "OFFSET_RATIO_F": f"{_PORT_DSP}:OFFSET_RATIO",
+        "big_values_from_quantized": f"{_KERNELS}:rate_sweep_plain",
+        "pack_main_data": f"{_KERNELS}:pack_plain",
+        "polyphase_chunk": f"{_KERNELS}:polyphase_chunk_plain",
+    },
+    "swiftmp3_tpu/ops/pallas_kernels.py": {
+        "rate_sweep_pallas": f"{_KERNELS}:rate_sweep",
+        "pack_pallas": f"{_KERNELS}:pack",
+        "polyphase_chunk_pallas": f"{_KERNELS}:polyphase_chunk",
+    },
+}
+_LOOKUPS = "a TPU form (where-tree or one-hot lookup, no gather): the port indexes its tables"
+_FRAME_OPS = "a frame-at-a-time op no path of the chunk program runs"
+# Public names of a ported module that the port leaves out, each with its
+# reason: reference module -> {name: reason}.
+LEFT_OUT = {
+    "swiftmp3_tpu/encoder.py": {"GoldenBackend": "the numpy golden backend: only tests run it"},
+    "swiftmp3_tpu/models/pipeline.py": {
+        "make_chunk_encoder": "the cache of jitted JAX programs: the port runs make_chunk_fn eagerly",
+    },
+    "swiftmp3_tpu/ops/dsp.py": {
+        "t15_code_lookup": _LOOKUPS,
+        "t15_length_lookup": _LOOKUPS,
+        "inv_step_lookup": _LOOKUPS,
+        "inv_step34_lookup": _LOOKUPS,
+        "sf_mult34_lookup": _LOOKUPS,
+        "validate_gather_free_lookups": "the tests' check of the TPU-form lookups",
+        "polyphase_frame": _FRAME_OPS,
+        "mdct_frame": _FRAME_OPS,
+        "rate_loop": _FRAME_OPS,
+        "mdct_chunk_blocksparse": "an alternative form of mdct_chunk that no path runs",
+    },
+    "swiftmp3_tpu/ops/pallas_kernels.py": {
+        name: "a Pallas tile size: each CUDA kernel sizes its own" for name in ("BF_B", "BG", "BN", "BT")
+    },
+    "swiftmp3_tpu/parallel/mesh.py": {"time_major_sharding": "deprecated in the reference"},
+    "swiftmp3_tpu/native/lib.py": {
+        "native_available": "the port's build raises when it fails, so there is nothing to ask",
+    },
+    "swiftmp3_tpu/utils/__init__.py": {
+        "enable_compilation_cache": "JAX's compilation cache: the port compiles no program ahead",
+    },
+}
+
+
+def _public_names(relpath: str) -> set:
+    """Names a module binds at its top level that do not start with _."""
+    with open(os.path.join(ROOT, relpath)) as fh:
+        tree = ast.parse(fh.read(), relpath)
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for t in targets:
+                names.update(n.id for n in ast.walk(t) if isinstance(n, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+def _reference_modules() -> list:
+    mods = ["__graft_entry__.py"]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "swiftmp3_tpu")):
+        mods += [os.path.relpath(os.path.join(dirpath, f), ROOT) for f in files if f.endswith(".py")]
+    return sorted(mods)
+
+
+def test_every_reference_module_has_its_counterpart():
+    """Each module of the reference (and its graft entry) has the port's
+    module at the same path, at the path MOVED gives, or a reason in
+    NOT_PORTED; each public name of a ported module is defined in the port's
+    module, has the counterpart RENAMED gives (which must exist), or a
+    reason in LEFT_OUT (and is then absent). Every map entry names a real
+    module and name, so none goes stale. Sources are read, not imported."""
+    mods = _reference_modules()
+    assert "swiftmp3_tpu/models/pipeline.py" in mods and len(mods) > 30
+    seen = set()
+    for mod in mods:
+        skip = [p for p in NOT_PORTED if mod == p or mod.startswith(p)]
+        if skip:
+            seen.update(skip)
+            continue
+        port = MOVED.get(mod, mod.replace("swiftmp3_tpu/", "swiftmp3_tpu_torch/", 1))
+        assert os.path.exists(os.path.join(ROOT, port)), f"{mod}: no {port}"
+        have = _public_names(port)
+        renamed, left_out = RENAMED.get(mod, {}), LEFT_OUT.get(mod, {})
+        names = _public_names(mod)
+        assert set(renamed) | set(left_out) <= names, f"{mod}: stale map entries"
+        for name in sorted(names):
+            if name in renamed:
+                where, other = renamed[name].split(":")
+                assert other in _public_names(where), f"{mod}:{name} -> {renamed[name]} is missing"
+            elif name in left_out:
+                assert name not in have, f"{mod}:{name} is ported; drop it from LEFT_OUT"
+            else:
+                assert name in have, f"{port} lacks {name}, the counterpart of {mod}:{name}"
+    assert seen == set(NOT_PORTED), f"stale NOT_PORTED entries: {set(NOT_PORTED) - seen}"
+    assert set(MOVED) <= set(mods) and set(RENAMED) | set(LEFT_OUT) <= set(mods)
+    for kernel, source in CUDA_SOURCES.items():
+        assert kernel in RENAMED["swiftmp3_tpu/ops/pallas_kernels.py"]
+        assert os.path.exists(os.path.join(ROOT, source)), source
 
 
 def test_package_exports_the_reference_names():

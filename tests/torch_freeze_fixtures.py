@@ -6,7 +6,7 @@ hold it to.
 Run once on the CPU, from the repository root; no test runs it (it compiles
 JAX hq chunk programs, which the fast tier never does). The parts are hq,
 strict, checkpoint, flags, depth_checkpoint, corpus, cli, dc, is, lsf, ff
-and mesh (all when none is named). It writes under tests/fixtures/torch/:
+mesh and entry (all when none is named). It writes under tests/fixtures/torch/:
 
 - golden_<preset>_<stem>.mp3: the golden numpy backend's streams under each
   hq configuration (tests/torch_inputs.HQ_OPTIONS) for the hq fixture rows
@@ -39,7 +39,12 @@ and mesh (all when none is named). It writes under tests/fixtures/torch/:
   CPU mesh of each stream of each set of torch_inputs.MESH_OPTIONS (part
   mesh), and jax_multihost_<dtype>.mp3 its single-process
   encode_batch_multihost of each of torch_inputs.multihost_streams(). The
-  module sets --xla_force_host_platform_device_count=8 before JAX starts.
+  module sets --xla_force_host_platform_device_count=8 before JAX starts;
+- jax_entry.npz (torch_inputs.ENTRY_FIXTURE, part entry): the fetched
+  outputs and new carry of __graft_entry__.entry()'s step, and of both steps
+  of the JAX dry run (__graft_entry__.py:112-198, its inputs drawn as it
+  draws them) over each of torch_inputs.ENTRY_DRYRUN_POSITIONS of the
+  virtual CPU devices, batch 2 a device.
 
 It prints, for every frozen JAX stream, how many frames the port's CPU
 session encodes differently (the port's tests hold it to these files).
@@ -58,16 +63,24 @@ if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "")
         os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
     ).strip()
 
+import jax
 import numpy as np
 import torch
+from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as P
 
+import __graft_entry__ as jentry
+import swiftmp3_tpu.utils as jutils
 from swiftmp3_tpu.cli import main as jax_cli
 from swiftmp3_tpu.encoder import EncoderSession
+from swiftmp3_tpu.models import pipeline as jpipe
 from swiftmp3_tpu.options import ID3Tag as JaxID3Tag
 from swiftmp3_tpu.options import MP3EncoderOptions as JaxOptions
 from swiftmp3_tpu.options import Mode
 from swiftmp3_tpu.parallel import encode_batch, encode_batch_multihost, encode_corpus, make_mesh
+from swiftmp3_tpu.parallel.mesh import DATA_AXIS
 from swiftmp3_tpu.utils.wav import write_wav
+from swiftmp3_tpu_torch import graft_entry
 from swiftmp3_tpu_torch.encoder import new_session
 from swiftmp3_tpu_torch.options import MP3EncoderOptions
 from swiftmp3_tpu_torch.parallel import encode_batch as encode_batch_port
@@ -227,6 +240,66 @@ def freeze_mesh() -> None:
               encode_batch_multihost(jo, [pcm], frames_per_step=ti.MESH_STEP)[0])
 
 
+def _jax_dryrun(n: int) -> dict:
+    """Both steps of the JAX dry run over the first n virtual CPU devices
+    (the body of __graft_entry__.py:112-198, its outputs kept):
+    {step: (fetched outputs, new carry)}."""
+    mesh = make_mesh(jax.devices()[:n])
+    sh = NamedSharding(mesh, P(DATA_AXIS))
+    T, B = 2, 2 * n
+    final = jax.device_put(np.zeros((B, T), dtype=bool), sh)
+    valid = jax.device_put(np.ones((B, T), dtype=bool), sh)
+
+    def step(jo, pcm, la=None):
+        carry = jax.tree_util.tree_map(lambda x: jax.device_put(x, sh), jpipe.init_carry(B, jo))
+        args = (carry, jax.device_put(pcm, sh), final, valid)
+        if la is not None:
+            args += (jax.device_put(la, sh),)
+        carry, outs = jax.jit(jpipe.make_chunk_fn(jo))(*args)
+        return jpipe.fetch_outputs(outs, jo), {k: np.asarray(v) for k, v in carry.items()}
+
+    jo = JaxOptions(mode=Mode.JOINT_STEREO, vbr=True, quality=3)
+    n_pcm = 1152 * jo.channels
+    rng = np.random.default_rng(1)
+    got = {"vbr": step(jo, (rng.standard_normal((B, T, n_pcm)) * 0.4).astype(np.float32))}
+    md = got["vbr"][0]["main_data"]
+    assert md.shape == (B, T, jpipe.main_data_cap(jo)), md.shape
+    assert bool(np.all(got["vbr"][1]["slot_fifo"][:, -1] > 0))
+    pcm_s = (rng.standard_normal((B, T, n_pcm)) * 0.1).astype(np.float32)
+    pcm_s[:, :, 400:900] *= 8.0
+    la_n = n_pcm // 2
+    la_s = np.zeros((B, T, la_n), dtype=np.float32)
+    la_s[:, :-1] = pcm_s[:, 1:, :la_n]
+    got["hq"] = step(JaxOptions.hq(mode=Mode.JOINT_STEREO), pcm_s, la_s)
+    for outputs, _ in got.values():
+        assert np.all(outputs["part23"] >= 0) and np.all(outputs["hb"] <= outputs["main_data"].shape[-1])
+    return got
+
+
+def freeze_entry() -> None:
+    """__graft_entry__.entry()'s step and the JAX dry run at each of
+    torch_inputs.ENTRY_DRYRUN_POSITIONS, in one file; prints the frames the
+    port's CPU runs differ in."""
+    jutils.enable_compilation_cache = lambda *args, **kwargs: None  # keep this process's cache
+    fn, args = jentry.entry()
+    carry, outs = jax.jit(fn)(*args)
+    jo = JaxOptions(mode=Mode.STEREO, bitrate_kbps=128)
+    outputs = jpipe.fetch_outputs(outs, jo)
+    arrays = ti.entry_arrays("entry", outputs, {k: np.asarray(v) for k, v in carry.items()})
+    tfn, targs = graft_entry.entry("cpu")
+    _, touts = tfn(*targs)
+    print(f"  entry: port differs in {ti.differing_frames(jpipe.fetch_outputs(touts, jo), outputs)} frames",
+          flush=True)
+    for n in ti.ENTRY_DRYRUN_POSITIONS:
+        port = graft_entry.dryrun_multichip(n, device="cpu")
+        for name, (outputs, carry) in _jax_dryrun(n).items():
+            arrays.update(ti.entry_arrays(f"dry{n}.{name}", outputs, carry))
+            print(f"  dry{n} {name}: port differs in {ti.differing_frames(port[name][0], outputs)} frames",
+                  flush=True)
+    np.savez_compressed(ti.ENTRY_FIXTURE, **arrays)
+    print(f"wrote {os.path.relpath(ti.ENTRY_FIXTURE)}", flush=True)
+
+
 PARTS = {
     "hq": lambda: freeze_presets(ti.HQ_OPTIONS, lambda preset: ti.hq_streams()),
     "strict": freeze_strict,
@@ -242,6 +315,7 @@ PARTS = {
     "lsf": freeze_lsf,
     "ff": lambda: freeze_rows(ti.FF_ROWS),
     "mesh": freeze_mesh,
+    "entry": freeze_entry,
 }
 
 

@@ -575,6 +575,52 @@ def multihost_streams() -> dict:
     return {"float32": f32, "int16": i16}
 
 
+# The graft entry (swiftmp3_tpu_torch/graft_entry.py against
+# __graft_entry__.py): the JAX entry's step and the JAX dry run at each of
+# ENTRY_DRYRUN_POSITIONS positions (batch 2 a position, 2 frames), frozen in
+# one file by `python -m tests.torch_freeze_fixtures entry`. Its keys are
+# "entry.<outputs|carry>.<name>" and "dry<n>.<vbr|hq>.<outputs|carry>.<name>".
+ENTRY_FIXTURE = os.path.join(TORCH_FIXTURE_DIR, "jax_entry.npz")
+ENTRY_DRYRUN_POSITIONS = (1, 2, 4, 8)
+
+
+def entry_arrays(run: str, outputs: dict, carry: dict) -> dict:
+    """One run's fetched outputs and carry under ENTRY_FIXTURE's keys."""
+    return {
+        **{f"{run}.outputs.{k}": np.asarray(v) for k, v in outputs.items()},
+        **{f"{run}.carry.{k}": np.asarray(v) for k, v in carry.items()},
+    }
+
+
+def frozen_entry(run: str) -> tuple[dict, dict]:
+    """(fetched outputs, carry) of a frozen run: "entry", or "dry<n>.vbr" /
+    "dry<n>.hq"."""
+    outputs, carry = {}, {}
+    with np.load(ENTRY_FIXTURE) as z:
+        for key in z.files:
+            head, part, name = key.rsplit(".", 2)
+            if head == run:
+                (outputs if part == "outputs" else carry)[name] = z[key]
+    if not outputs:
+        raise KeyError(f"{run} is not in {ENTRY_FIXTURE}")
+    return outputs, carry
+
+
+def differing_frames(got: dict, ref: dict) -> int:
+    """Frames (stream, time) in which any fetched field, main_data bytes
+    included, differs; raises when the fields or their shapes differ."""
+    if sorted(got) != sorted(ref):
+        raise ValueError(f"fields differ: {sorted(set(got) ^ set(ref))}")
+    differ = None
+    for k, want in ref.items():
+        have = np.asarray(got[k])
+        if have.shape != want.shape:
+            raise ValueError(f"{k}: shape {have.shape}, want {want.shape}")
+        d = (have != want).reshape(*want.shape[:2], -1).any(axis=-1)
+        differ = d if differ is None else differ | d
+    return int(differ.sum())
+
+
 def save_session_state(path: str, state: dict, **extra) -> None:
     """An EncoderSession.state_dict() (either package's) as an .npz of plain
     arrays; `extra` arrays ride along."""
