@@ -6,7 +6,8 @@
 Needs one CUDA card, `nvcc` (the kernels build from swiftmp3_tpu_torch/ops/csrc
 at first use), `g++` (the native frame renderer) and the repository
 checkout; imports nothing of JAX and nothing of the JAX package (its
-reference streams are committed files). Phases:
+reference streams are committed files; the golden encoder and the decoder
+it runs are the port's copies). Phases:
 
   1. card: name and power limit, kernel build time;
   2. K1 rate sweep: kernel vs plain version, bit-exact, both quantizer laws,
@@ -122,6 +123,22 @@ reference streams are committed files). Phases:
      checked (K1 once a position, K2 twice) and its wall s printed; frames
      that differ anywhere are pinned by ENTRY_FLIP_CEILING and
      ENTRY_BULK_FLIP_CEILING;
+  4n. decode and score ([decode], run after 4j): the first DECODE_ROWS (4)
+     of the bulk streams of [main], [strict], [hq_joint], [lsf hq] and [hq
+     is] (256 frames each), and the port's golden encoder
+     (new_session(o, backend="numpy")) run on the host over the same rows,
+     fed as BatchEncoder was (each step's frames, each frame's lookahead
+     granule under window sequencing): structure equal, flips pinned by
+     DECODE_FLIP_CEILING; both decoded by the port's decode_mp3 (every frame
+     parses, CRCs verify where the options protect them, equal sample
+     counts), each channel scored against its input (measure_quality's
+     gain-compensated SNR, masked_noise_ratio), the card's and the golden's
+     scores side by side and their largest difference pinned by
+     DECODE_SCORE_CEILING_DB; the card's streams through libmpg123 where
+     the host has it (agreement with the oracle at least
+     MPG123_AGREEMENT_FLOOR_DB on conforming streams), else a line saying it
+     is absent; the rows run in worker processes (spawned, one BLAS thread
+     each), and the phase's wall time is printed. It launches no kernel.
   5. parity: the 8 compat fixture rows through new_session(o) against the
      JAX backend's committed streams (tests/fixtures/*.tpu.mp3), and 2
      main-path streams and the ULP-telemetry corpus against the golden numpy
@@ -271,6 +288,21 @@ MESH_POSITIONS = 4  # [mesh] and [entry]: positions on cuda:0, 64 streams each
 ENTRY_FLIP_CEILING = 2
 ENTRY_BULK_FLIP_CEILING = 2
 MULTIHOST_TIMEOUT_S = 300  # [multihost]: each worker, start-up included
+# [decode]: the first DECODE_ROWS streams of five bulk paths against the
+# golden encoder run on the host over the same rows. The frames whose bytes
+# differ, under the telemetry suite's rule max(2x, +2) of the card's count,
+# and the largest difference between the card's and the golden's decoded
+# score of a channel (gain-compensated SNR and masked NMR, dB), under
+# max(2x, +0.2 dB) of the card's. Pinned from the card run recorded in
+# PERF.md (H100 80GB HBM3, 700 W: 0, 2, 4, 1 and 4 of 1024 frames; every
+# score difference under 0.0005 dB).
+DECODE_ROWS = 4
+DECODE_FLIP_CEILING = {"main": 2, "strict": 4, "hq_joint": 8, "lsf hq": 3, "hq is": 8}
+DECODE_SCORE_CEILING_DB = 0.2
+# the oracle against libmpg123 on a conforming stream (iso_ms_matrix), where
+# the card host has the library; compat streams decode with the reference's
+# data placement, which the two decoders read differently
+MPG123_AGREEMENT_FLOOR_DB = 60.0
 
 STEPS_MAIN = 2
 STEPS_STRICT = 2
@@ -811,10 +843,11 @@ def _hq_dc(mono_audio, card: str) -> None:
         raise AssertionError("no frame of the hq dc pack check ran past the cap")
 
 
-def _hq_is(card: str) -> None:
+def _hq_is(card: str) -> tuple:
     """Phase 4i: intensity stereo at full width on panned two-tone audio (2
     steps), some frames emitting intensity; K2 on the IS path's pack
-    input."""
+    input. Returns (options, audio, streams) of the first DECODE_ROWS rows
+    for [decode]."""
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
     from tests.torch_inputs import (
         B_MAIN,
@@ -843,12 +876,14 @@ def _hq_is(card: str) -> None:
           f"step+render wall s {['%.3f' % t for t in i_wall_s]}; launches {i_launches}", flush=True)
     for k, t in enumerate(i_step_ms):
         print(f"[hq is] step {k} device ms {t:.2f} ({audio_s / (t / 1e3):.1f} audio-s/s)", flush=True)
+    rows = (is_opts, [a[:DECODE_ROWS].copy() for a in is_audio], i_streams[:DECODE_ROWS])
     del i_streams
     # a 32 kbps frame holds a fifth of the 128 kbps slots' bits: 8 times over
     # (on the first 4096 frames, within the plain version's memory) runs
     # frames past the cap
     if _check_pack(i_first.pack, "hq is", card, repeat=8, frames=4096) == 0:
         raise AssertionError("no frame of the hq is pack check ran past the cap")
+    return rows
 
 
 def _parity_dc_is() -> None:
@@ -891,14 +926,16 @@ def _parity_dc_is() -> None:
             raise AssertionError(f"{preset} byte flips above the pinned ceiling")
 
 
-def _lsf(mono_audio, card: str) -> dict:
+def _lsf(mono_audio, card: str) -> tuple:
     """Phase 4j: the LSF paths at full width ([lsf strict], [lsf hq], [lsf
     iso]: 256 streams x 128 frames of 576 samples of bench audio at their
     rates, STEPS_LSF steps each) and free format ([free format]: one step of
     the main bench audio's left channel); every frame walk checked, step
     times printed; K1 against its plain version on the lsf iso path's sweep
     input, K2 on each path's pack input and on its slots three times over
-    (past the cap). Returns each path's launch counts."""
+    (past the cap). Returns (each path's launch counts, the [lsf hq] path's
+    options, audio and streams of the first DECODE_ROWS rows for
+    [decode])."""
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
     from tests.torch_inputs import B_MAIN, LSF_PATHS, T_MAIN, bench_audio, build_options, walk_frames
 
@@ -930,6 +967,8 @@ def _lsf(mono_audio, card: str) -> dict:
               f"{['%.3f' % t for t in wall_s]}; launches {p_launches}", flush=True)
         for k, t in enumerate(step_ms):
             print(f"[{path}] step {k} device ms {t:.2f} ({audio_s / (t / 1e3):.1f} audio-s/s)", flush=True)
+        if path == "lsf hq":
+            rows = (o, [a[:DECODE_ROWS].copy() for a in audio], streams[:DECODE_ROWS])
         del streams
         if path == "lsf iso":
             _check_sweep(first.sweep, path, card)
@@ -939,7 +978,7 @@ def _lsf(mono_audio, card: str) -> dict:
             raise AssertionError(f"no frame of the {path} pack check ran past the cap")
         del first
         launches[path] = p_launches
-    return launches
+    return launches, rows
 
 
 def _parity_lsf() -> None:
@@ -980,6 +1019,144 @@ def _parity_lsf() -> None:
               f"and MDCT 0/{n_frames} both ways", flush=True)
         if max(flips) > LSF_JAX_FLIP_CEILING[row]:
             raise AssertionError(f"{row} byte flips above the pinned ceiling")
+
+
+def _golden_rows(options, audio: list) -> list:
+    """The golden encoder's streams of the rows of `audio` (steps [R, T, n]
+    int16), fed as BatchEncoder was fed: each step's frames, under
+    window_sequencing with each frame's lookahead granule (bench.py's
+    contract, no preroll: the session's encode() would prepend one), then
+    the buffered frames flushed."""
+    from swiftmp3_tpu_torch.encoder import new_session
+    from tests.torch_inputs import step_lookahead
+
+    scale = np.float32(32768.0)
+    out = []
+    for r in range(audio[0].shape[0]):
+        s = new_session(options, backend="numpy")
+        data = bytearray()
+        for k, step in enumerate(audio):
+            la = None
+            if options.window_sequencing:
+                la = step_lookahead(audio, k, options.channels)[r].astype(np.float32) / scale
+            frames = step[r].astype(np.float32) / scale
+            for fr in s.backend.encode_frames(frames, np.zeros(len(frames), bool), lookahead=la):
+                data += s.assembler.push(fr)
+        out.append(bytes(data + s.assembler.flush_buffered()))
+    return out
+
+
+def _decode_row(options, audio: list, card_data: bytes) -> dict:
+    """[decode] for one row: the golden encoder's stream of the row's audio
+    (steps [1, T, n] int16), held structurally equal to the card's stream;
+    both decoded by the port's oracle (every frame must parse, CRCs verify
+    where the options protect them, equal sample counts; a compat stream's
+    frame whose main_data reaches before the stream's start decodes to
+    nothing, the reference's data placement) and scored per
+    channel against the input; the card's stream through libmpg123 where
+    the host has it. Runs in a worker process: numpy only."""
+    from swiftmp3_tpu_torch.decoder.decoder import decode_mp3, verify_frame_crcs
+    from swiftmp3_tpu_torch.utils.external import have_mpg123, mpg123_decode
+    from swiftmp3_tpu_torch.utils.quality import (
+        decode_agreement_snr,
+        masked_noise_ratio,
+        measure_quality,
+    )
+
+    t0 = time.perf_counter()
+    (golden,) = _golden_rows(options, audio)
+    _compare_streams(card_data, golden, "card vs golden")
+    fc, fg = _frames(card_data), _frames(golden)
+    n_frames = len(fc)
+    ch, sr = options.channels, options.sample_rate
+    pcm = np.concatenate([a[0].reshape(-1) for a in audio]).astype(np.float32).reshape(-1, ch) / 32768
+    out = {"differ": [i for i, (a, b) in enumerate(zip(fc, fg)) if a != b], "frames": n_frames}
+    decoded = {}
+    for who, data in (("card", card_data), ("golden", golden)):
+        dec = decode_mp3(data, iso_conventions=options.iso_ms_matrix)
+        if dec.frame_count != n_frames or dec.pcm.shape[1] != ch:
+            raise AssertionError(f"{who}: parsed {dec.frame_count} of {n_frames} frames, "
+                                 f"{dec.pcm.shape[1]} channels")
+        crcs = verify_frame_crcs(data)
+        if options.crc_protected and (len(crcs) != n_frames or not all(crcs)):
+            raise AssertionError(f"{who}: {crcs.count(False)} of {n_frames} frames fail their CRC")
+        decoded[who] = dec.pcm
+        out[who] = {
+            "snr": [measure_quality(pcm[:, c], dec.pcm[:, c], sr).snr_db for c in range(ch)],
+            "nmr": [masked_noise_ratio(pcm[:, c], dec.pcm[:, c], sr) for c in range(ch)],
+        }
+    if decoded["card"].shape != decoded["golden"].shape:
+        raise AssertionError(f"decoded {decoded['card'].shape} from the card's stream, "
+                             f"{decoded['golden'].shape} from the golden's")
+    out["decoded_frames"] = len(decoded["card"]) // options.samples_per_frame
+    out["mpg123"] = None
+    if have_mpg123():
+        ext, rate = mpg123_decode(card_data)
+        if rate != sr or ext.shape[1] != ch:
+            raise AssertionError(f"libmpg123 decoded {ext.shape} at {rate} Hz")
+        out["mpg123"] = min(decode_agreement_snr(decoded["card"][:, c], ext[:, c]) for c in range(ch))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+_ONE_THREAD = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+def _decode_phase(paths: dict, card: str) -> None:
+    """[decode]: for each bulk path {name: (options, audio, streams)} (the
+    phase's steps of audio and its streams, first DECODE_ROWS rows), each
+    row through _decode_row in a pool of worker processes; per path, the
+    card's and the golden's scores side by side, the flips and the score
+    differences against their ceilings, the libmpg123 agreement."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from unittest import mock
+
+    from swiftmp3_tpu_torch.utils.external import have_mpg123
+
+    t0 = time.perf_counter()
+    jobs = [(name, o, [a[r : r + 1] for a in audio], bytes(streams[r]))
+            for name, (o, audio, streams) in paths.items() for r in range(DECODE_ROWS)]
+    workers = min(len(jobs), os.cpu_count() or 1)
+    # one BLAS thread a worker: the workers take the environment at start
+    with mock.patch.dict(os.environ, _ONE_THREAD), ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        futures = [pool.submit(_decode_row, o, audio, data) for _, o, audio, data in jobs]
+        rows = [f.result() for f in futures]
+    wall = time.perf_counter() - t0
+    failed = []
+    for name in paths:
+        got = [row for (n, *_), row in zip(jobs, rows) if n == name]
+        differ = [f"{r}:{i}" for r, row in enumerate(got) for i in row["differ"]]
+        flips, frames = len(differ), sum(r["frames"] for r in got)
+        decoded = sum(r["decoded_frames"] for r in got)
+        means, diffs = {}, {}
+        for key in ("snr", "nmr"):
+            for who in ("card", "golden"):
+                means[key, who] = statistics.fmean(v for r in got for v in r[who][key])
+            diffs[key] = max(abs(a - b) for r in got for a, b in zip(r["card"][key], r["golden"][key]))
+        agree = [r["mpg123"] for r in got]
+        mpg = (f"libmpg123 agreement with the oracle min {min(agree):.1f} dB" if have_mpg123()
+               else "libmpg123 absent on this host")
+        o = paths[name][0]
+        print(f"[decode] {name}: {DECODE_ROWS} streams x {frames // DECODE_ROWS} frames, {card}: structure "
+              f"equal to the golden encoder's, {flips}/{frames} frames differ (ceiling "
+              f"{DECODE_FLIP_CEILING[name]}; row:frame {differ}); every frame parses"
+              + (", CRCs verify" if o.crc_protected else " (no CRC)")
+              + f", {decoded}/{frames} decode to samples, as many as the golden's"
+              + f"; SNR card {means['snr', 'card']:.2f} golden {means['snr', 'golden']:.2f} dB (mean of "
+              f"channels), NMR card {means['nmr', 'card']:.2f} golden {means['nmr', 'golden']:.2f} dB; "
+              f"largest difference of a channel SNR {diffs['snr']:.6f} NMR {diffs['nmr']:.6f} dB "
+              f"(ceiling {DECODE_SCORE_CEILING_DB}); {mpg}", flush=True)
+        if flips > DECODE_FLIP_CEILING[name] or max(diffs.values()) > DECODE_SCORE_CEILING_DB:
+            failed.append(name)
+        if have_mpg123() and o.iso_ms_matrix and min(agree) < MPG123_AGREEMENT_FLOOR_DB:
+            failed.append(f"{name} (libmpg123)")
+    print(f"[decode] {len(jobs)} streams in {workers} worker processes: {wall:.2f} s wall, "
+          f"{sum(r['seconds'] for r in rows):.2f} s of work", flush=True)
+    if failed:
+        raise AssertionError(f"[decode] above the pinned ceilings: {failed}")
 
 
 def _stream_rows(audio) -> list:
@@ -1471,6 +1648,7 @@ def main() -> int:
         if main_launches[name] <= 0:
             raise AssertionError(f"the main path never launched kernel {name}")
     _check_walks(streams, STEPS_MAIN * T_MAIN)
+    decode_paths = {"main": (opts, [a[:DECODE_ROWS] for a in audio], streams[:DECODE_ROWS])}
     audio_s = B_MAIN * T_MAIN * 1152 / opts.sample_rate
     steady = statistics.median(step_ms[1:])
     print(f"[main] BatchEncoder B={B_MAIN} T={T_MAIN} x {STEPS_MAIN} steps, {card}: "
@@ -1492,6 +1670,8 @@ def main() -> int:
           f"({audio_s / (s_step_ms[-1] / 1e3):.1f} audio-s/s at the last step); step+render "
           f"wall s {['%.3f' % t for t in s_wall_s]}; {B_MAIN} streams x "
           f"{STEPS_STRICT * T_MAIN} frames walk OK; launches {s_launches}", flush=True)
+    decode_paths["strict"] = (s_opts, [a[:DECODE_ROWS] for a in audio], s_streams[:DECODE_ROWS])
+    del s_streams
     _check_pack(s_first.pack, "strict", card)
     del s_first
     phase_done("strict")
@@ -1515,6 +1695,8 @@ def main() -> int:
               f"frames walk OK; launches {h_launches}", flush=True)
         if preset == "hq_joint":
             hq_pack = h_first.pack
+            decode_paths[preset] = (hq_opts[preset], [a[:DECODE_ROWS] for a in audio],
+                                    h_streams[:DECODE_ROWS])
         del h_streams, h_first
     _check_pack(hq_pack, "hq", card)
     print(f"[K2 hq] launches on the hq paths {({p: v['pack'] for p, v in hq_launches.items()})}",
@@ -1638,10 +1820,13 @@ def main() -> int:
 
     _hq_dc(mono_audio, card)
     phase_done("hq dc")
-    _hq_is(card)
+    decode_paths["hq is"] = _hq_is(card)
     phase_done("hq is")
-    lsf_launches = _lsf(mono_audio, card)
+    lsf_launches, decode_paths["lsf hq"] = _lsf(mono_audio, card)
     phase_done("lsf and free format")
+    _decode_phase(decode_paths, card)
+    del decode_paths
+    phase_done("decode")
     mesh_launches, one_card = _mesh(opts, audio, card)
     phase_done("mesh")
     multihost_launches = _multihost(opts, audio, one_card, card)

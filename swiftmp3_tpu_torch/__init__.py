@@ -3,8 +3,10 @@
 A second package beside `swiftmp3_tpu` (the JAX reference, which it is held
 against). It imports `torch` and never `jax`, and nothing of `swiftmp3_tpu`:
 it keeps its own copies of the reference's host modules (`options`,
-`tables`, `io`, `native`, `streaming`, and the session in `encoder`), laid
-out under the same names, so a reader finds each counterpart by path.
+`tables`, `io`, `native`, `streaming`, the session and the golden backend
+in `encoder`, the golden DSP `ops.reference`, the `decoder`, and
+`utils.quality` and `utils.external`), laid out under the same names, so a
+reader finds each counterpart by path.
 
 It covers the compat, spec_strict and hq chunk programs (the hq flags
 included: the static and adaptive lowpass, demand VBR, reservoir depth 1-8,
@@ -19,13 +21,15 @@ entry point of the reference:
     swiftmp3_tpu_torch.parallel.StreamPool(options, lanes, T)    # serving
     swiftmp3_tpu_torch.parallel.make_mesh() / encode_batch_multihost
     python -m swiftmp3_tpu_torch in.wav out.mp3 [--device cpu]   # command line
+    swiftmp3_tpu_torch.decoder.decode_mp3(data)                  # the oracle
 
 Every entry point runs on the card ("cuda", or every card with
 `mesh=make_mesh()`) unless the caller passes `device="cpu"` or a mesh of
-CPU positions; nothing falls back to the CPU on its own. Every Pallas
-kernel of the reference has a hand-written CUDA counterpart (`ops/csrc/`),
-launched for CUDA tensors; CPU tensors take their plain PyTorch versions
-(`ops/kernels.py`).
+CPU positions; nothing falls back to the CPU on its own. The golden
+encoder (`MP3Encoder(options, backend="numpy")`, `--backend numpy`) runs
+on the host when the caller names it. Every Pallas kernel of the reference
+has a hand-written CUDA counterpart (`ops/csrc/`), launched for CUDA
+tensors; CPU tensors take their plain PyTorch versions (`ops/kernels.py`).
 
 Numerics: float32 matrix products are pinned to full fp32 at import (no
 TF32) — the counterpart of the reference's `Precision.HIGHEST` dots; integer

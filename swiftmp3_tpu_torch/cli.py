@@ -4,9 +4,11 @@
     python -m swiftmp3_tpu_torch input.wav output.mp3 [--bitrate 128] [--vbr]
         [--mode stereo|mono|joint_stereo] [--quality 5] [--crc]
         [--title T --artist A --album AL] [--device cuda|cpu]
+        [--backend torch|numpy]
 
 Mirrors the reference's file-encode layout: [ID3][Xing/Info][frames]. Runs on
-the card unless --device cpu is given.
+the card unless --device cpu is given; --backend numpy runs the golden
+encoder on the host instead.
 """
 
 from __future__ import annotations
@@ -82,6 +84,13 @@ def main(argv=None) -> int:
         help="where the encoder runs (default: the CUDA card; there is no "
         "fallback to the CPU)",
     )
+    p.add_argument(
+        "--backend",
+        choices=["torch", "numpy"],
+        default="torch",
+        help="torch: the PyTorch program on --device; numpy: the golden "
+        "encoder on the host",
+    )
     p.add_argument("--quiet", action="store_true")
     args = p.parse_args(argv)
 
@@ -123,7 +132,7 @@ def main(argv=None) -> int:
         )
     else:
         options = MP3EncoderOptions(**common)
-    enc = MP3Encoder(options, device=args.device)
+    enc = MP3Encoder(options, device=args.device, backend=args.backend)
     t0 = time.perf_counter()
     encode_file_sync(enc, pcm, args.output)
     dt = time.perf_counter() - t0

@@ -8,7 +8,8 @@ the originals, and nothing of the port imports the JAX package (CPU).
   or a test module.
 - Every public array and table of `swiftmp3_tpu_torch.tables` equals the
   reference's bit for bit; the verbatim copies are byte-identical sources
-  (`utils.profiling.ThroughputMeter` the class alone).
+  (`utils.profiling.ThroughputMeter` and `encoder.GoldenBackend` the class
+  alone).
 - Both packages' `MP3EncoderOptions` agree in every field and derived
   property on the fixture rows' keyword arguments and the presets.
 - The port's native renderer and the reference's render the same chunk
@@ -95,14 +96,21 @@ def test_port_file_imports_nothing_of_the_jax_package(relpath):
 
 def test_the_import_scan_covers_the_entry_points():
     """The command line, the serving pool, the mesh, the utilities, the
-    graft entry and the port's examples are scanned."""
+    graft entry, the port's examples and its host oracles (the golden DSP,
+    the decoder, the quality measures, the codec library bindings) are
+    scanned."""
     files = set(_port_files())
     want = {"swiftmp3_tpu_torch/cli.py", "swiftmp3_tpu_torch/__main__.py",
             "swiftmp3_tpu_torch/graft_entry.py",
             "swiftmp3_tpu_torch/parallel/pool.py", "swiftmp3_tpu_torch/parallel/batch.py",
             "swiftmp3_tpu_torch/utils/__init__.py", "swiftmp3_tpu_torch/utils/wav.py",
             "swiftmp3_tpu_torch/parallel/mesh.py", "swiftmp3_tpu_torch/utils/profiling.py",
-            "examples/torch_podcast_corpus.py", "examples/torch_live_serving.py"}
+            "examples/torch_podcast_corpus.py", "examples/torch_live_serving.py",
+            "swiftmp3_tpu_torch/ops/reference.py", "swiftmp3_tpu_torch/utils/quality.py",
+            "swiftmp3_tpu_torch/utils/external.py",
+            *(f"swiftmp3_tpu_torch/decoder/{n}" for n in (
+                "__init__.py", "decoder.py", "tables.py", "_b7_data.py", "_lsf_data.py",
+                "_spec_data.py"))}
     assert want <= files
 
 
@@ -243,6 +251,11 @@ VERBATIM = [
                            "huffman_pack.py", "framing.py", "xing.py", "id3.py")),
     "native/frame_render.cpp",
     "utils/wav.py",
+    "utils/quality.py",
+    "utils/external.py",
+    "ops/reference.py",
+    *(f"decoder/{n}" for n in ("__init__.py", "decoder.py", "tables.py", "_b7_data.py",
+                                "_lsf_data.py", "_spec_data.py")),
 ]
 
 
@@ -263,19 +276,27 @@ def test_verbatim_copy_is_byte_identical(relpath):
     assert got == ref
 
 
-def _meter_source(relpath: str) -> str:
-    """The ThroughputMeter class of a profiling module, decorator to the
+def _class_source(relpath: str, head: str) -> str:
+    """A class of a module, from `head` (its decorator or class line) to the
     end of its body."""
     with open(os.path.join(ROOT, relpath)) as fh:
         text = fh.read()
-    start = text.index("@dataclass\nclass ThroughputMeter")
+    start = text.index(head)
     return text[start : text.index("\n\n\n", start)]
 
 
 def test_throughput_meter_is_a_verbatim_copy():
-    ref = _meter_source("swiftmp3_tpu/utils/profiling.py")
+    head = "@dataclass\nclass ThroughputMeter"
+    ref = _class_source("swiftmp3_tpu/utils/profiling.py", head)
     assert len(ref) > 800
-    assert _meter_source("swiftmp3_tpu_torch/utils/profiling.py") == ref
+    assert _class_source("swiftmp3_tpu_torch/utils/profiling.py", head) == ref
+
+
+def test_golden_backend_is_a_verbatim_copy():
+    head = "class GoldenBackend:"
+    ref = _class_source("swiftmp3_tpu/encoder.py", head)
+    assert len(ref) > 40000
+    assert _class_source("swiftmp3_tpu_torch/encoder.py", head) == ref
 
 
 def _option_kwargs(kw: dict) -> dict:

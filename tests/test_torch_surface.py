@@ -42,12 +42,7 @@ def _exports(relpath: str) -> set:
 
 
 # Reference modules the port has no module for, each with its reason.
-NOT_PORTED = {
-    "swiftmp3_tpu/decoder/": "the reference's decoder: only tests run it (port tests import it)",
-    "swiftmp3_tpu/ops/reference.py": "the numpy golden encoder: only tests run it",
-    "swiftmp3_tpu/utils/quality.py": "test-side quality measures in numpy: port tests import them",
-    "swiftmp3_tpu/utils/external.py": "test-side ctypes bindings of libmp3lame and libmpg123",
-}
+NOT_PORTED = {}
 # Reference modules whose counterpart lies at another path.
 MOVED = {
     "__graft_entry__.py": "swiftmp3_tpu_torch/graft_entry.py",
@@ -85,7 +80,6 @@ _FRAME_OPS = "a frame-at-a-time op no path of the chunk program runs"
 # Public names of a ported module that the port leaves out, each with its
 # reason: reference module -> {name: reason}.
 LEFT_OUT = {
-    "swiftmp3_tpu/encoder.py": {"GoldenBackend": "the numpy golden backend: only tests run it"},
     "swiftmp3_tpu/models/pipeline.py": {
         "make_chunk_encoder": "the cache of jitted JAX programs: the port runs make_chunk_fn eagerly",
     },
