@@ -74,6 +74,7 @@ from ..tables import (
     mode_bits,
     switch_bound,
 )
+from ..utils.profiling import annotate
 
 MAX_FRAME_MAIN_BITS = 1152 * 15  # all pair slots at 15 bits
 # the Layer III bitrates (kbps) demand VBR chooses among: MPEG-1, and at LSF
@@ -477,134 +478,138 @@ def make_chunk_fn(options: MP3EncoderOptions):
         return block_b, tails, seq_ps, seq_pw
 
     def run(carry, pcm, final, valid, la=None):
-        pcm = dsp.ingest(pcm)
-        B, T = pcm.shape[0], pcm.shape[1]
-        dev = pcm.device
+        with annotate("chunk.phase1"):
+            pcm = dsp.ingest(pcm)
+            B, T = pcm.shape[0], pcm.shape[1]
+            dev = pcm.device
 
-        # ---------------- Phase 1: parallel DSP (batch-major) ----------------
-        pcm_bt = pcm.reshape(B, T * pcm.shape[-1])
-        use_ms = None  # per-frame M/S decision (joint stereo only)
-        left = right = None
-        raw_blocks = None  # the raw L/R transient verdicts [B, 2, T, gr]
+            # ---------------- Phase 1: parallel DSP (batch-major) ----------------
+            pcm_bt = pcm.reshape(B, T * pcm.shape[-1])
+            use_ms = None  # per-frame M/S decision (joint stereo only)
+            left = right = None
+            raw_blocks = None  # the raw L/R transient verdicts [B, 2, T, gr]
 
-        def raw_verdicts():
-            nonlocal raw_blocks
-            if raw_blocks is None:
-                raw_g = torch.stack([left, right], dim=1).reshape(B, 2, T, n_gr, 576)
-                raw_blocks = dsp.transient_frame(raw_g)[0]
-            return raw_blocks
+            def raw_verdicts():
+                nonlocal raw_blocks
+                if raw_blocks is None:
+                    raw_g = torch.stack([left, right], dim=1).reshape(B, 2, T, n_gr, 576)
+                    raw_blocks = dsp.transient_frame(raw_g)[0]
+                return raw_blocks
 
-        if ch == 2:
-            left = pcm_bt[:, 0::2].reshape(B, T, spf)
-            right = pcm_bt[:, 1::2].reshape(B, T, spf)
-        if win_seq:
-            if la is None:
-                raise ValueError(
-                    "window_sequencing needs each frame's lookahead granule, "
-                    "la [B, T, 576*ch]"
+            if ch == 2:
+                left = pcm_bt[:, 0::2].reshape(B, T, spf)
+                right = pcm_bt[:, 1::2].reshape(B, T, spf)
+            if win_seq:
+                if la is None:
+                    raise ValueError(
+                        "window_sequencing needs each frame's lookahead granule, "
+                        "la [B, T, 576*ch]"
+                    )
+                block_b, onset_tails, seq_ps, seq_pw = sequence(
+                    carry, pcm_bt, left, right, dsp.ingest(la), final, valid
                 )
-            block_b, onset_tails, seq_ps, seq_pw = sequence(
-                carry, pcm_bt, left, right, dsp.ingest(la), final, valid
-            )
-            sb_gain_b = torch.zeros((B, ch, T, n_gr, 3), dtype=i32, device=dev)
-        is_gate = is_shared_blk = None  # [B, T]; [B, T, gr]
-        if ch == 1:
-            pcm_chunk = pcm_bt[:, None, :]
-        else:
-            if joint:
-                use_ms, c0, c1 = dsp.stereo_decide(
-                    left, right, iso_matrix=options.iso_ms_matrix,
-                    symmetric=options.ms_symmetric,
-                )
+                sb_gain_b = torch.zeros((B, ch, T, n_gr, 3), dtype=i32, device=dev)
+            is_gate = is_shared_blk = None  # [B, T]; [B, T, gr]
+            if ch == 1:
+                pcm_chunk = pcm_bt[:, None, :]
             else:
-                c0, c1 = left, right
-            if intensity:
-                # The intensity gate (pipeline.py:296-366): frames whose
-                # granules are all LONG-layout or pure SHORT on the raw L/R
-                # (the sequencing blocks, else the raw transient verdicts,
-                # shared across channels) code raw L/R and may emit
-                # intensity; under ms_symmetric side-dominant M/S frames opt
-                # out. use_ms is masked on gated frames.
-                if win_seq:
-                    is_gate = torch.all(block_b[:, 0] != dsp.BLOCK_MIXED, dim=-1)
+                if joint:
+                    use_ms, c0, c1 = dsp.stereo_decide(
+                        left, right, iso_matrix=options.iso_ms_matrix,
+                        symmetric=options.ms_symmetric,
+                    )
                 else:
-                    is_shared_blk = torch.amax(raw_verdicts(), dim=1)
-                    is_gate = torch.all(is_shared_blk != dsp.BLOCK_MIXED, dim=-1)
-                if options.ms_symmetric:
-                    _, _, mid_e, side_e = dsp.ms_energies(left, right, options.iso_ms_matrix)
-                    is_gate = is_gate & ~(use_ms & (mid_e < side_e * 0.4))
-                c0 = torch.where(is_gate[..., None], left, c0)
-                c1 = torch.where(is_gate[..., None], right, c1)
-                use_ms = use_ms & ~is_gate
-            pcm_chunk = torch.stack([c0, c1], dim=1).reshape(B, ch, T * spf)
-        granule_pcm = pcm_chunk.reshape(B, ch, T, n_gr, 576)
+                    c0, c1 = left, right
+                if intensity:
+                    # The intensity gate (pipeline.py:296-366): frames whose
+                    # granules are all LONG-layout or pure SHORT on the raw L/R
+                    # (the sequencing blocks, else the raw transient verdicts,
+                    # shared across channels) code raw L/R and may emit
+                    # intensity; under ms_symmetric side-dominant M/S frames opt
+                    # out. use_ms is masked on gated frames.
+                    if win_seq:
+                        is_gate = torch.all(block_b[:, 0] != dsp.BLOCK_MIXED, dim=-1)
+                    else:
+                        is_shared_blk = torch.amax(raw_verdicts(), dim=1)
+                        is_gate = torch.all(is_shared_blk != dsp.BLOCK_MIXED, dim=-1)
+                    if options.ms_symmetric:
+                        _, _, mid_e, side_e = dsp.ms_energies(left, right, options.iso_ms_matrix)
+                        is_gate = is_gate & ~(use_ms & (mid_e < side_e * 0.4))
+                    c0 = torch.where(is_gate[..., None], left, c0)
+                    c1 = torch.where(is_gate[..., None], right, c1)
+                    use_ms = use_ms & ~is_gate
+                pcm_chunk = torch.stack([c0, c1], dim=1).reshape(B, ch, T * spf)
+            granule_pcm = pcm_chunk.reshape(B, ch, T, n_gr, 576)
 
-        S, full_x = dsp.polyphase_chunk_matmul(carry["fb_hist"], pcm_chunk)
-        if not win_seq:
-            block_b, sb_gain_b = dsp.transient_frame(granule_pcm)  # [B,ch,T,gr], [..,3]
-            if options.shared_ms_blocks and use_ms is not None:
-                # M/S frames carry one window layout across both channels: the
-                # raw L/R verdicts, the more transient winning (pipeline.py:388-403)
-                shared = torch.amax(raw_verdicts(), dim=1, keepdim=True)
-                block_b = torch.where(use_ms[:, None, :, None], shared, block_b)
-            if lsf and not iso_short:
-                # LSF mixed blocks need the ISO layout of iso_short_blocks;
-                # without it they are SHORT (pipeline.py:380-387, 398-401:
-                # demoting before the shared maximum is demoting after it)
-                block_b = torch.where(block_b == dsp.BLOCK_MIXED, dsp.BLOCK_SHORT, block_b)
-            if is_shared_blk is not None:
-                # intensity-gated frames share the raw verdict (pipeline.py:404-411)
-                block_b = torch.where(is_gate[:, None, :, None], is_shared_blk[:, None], block_b)
-            if iso_quant:
-                # the unit-gain law emits no per-window gains (pipeline.py:412-417)
-                sb_gain_b = torch.zeros_like(sb_gain_b)
-        spectra, cur = dsp.mdct_chunk(
-            S, carry["overlap"], block_b.reshape(B, ch, n_gr * T),
-            iso_mixed_alias=iso_short, window_seq=win_seq,
-        )
-        spectra = spectra.reshape(B, ch, T, n_gr, 576)
-        if cut_sb is not None:
-            spectra = lowpass_stage(spectra, block_b, cut_sb, options.adaptive_lowpass)
+            S, full_x = dsp.polyphase_chunk_matmul(carry["fb_hist"], pcm_chunk)
+            if not win_seq:
+                block_b, sb_gain_b = dsp.transient_frame(granule_pcm)  # [B,ch,T,gr], [..,3]
+                if options.shared_ms_blocks and use_ms is not None:
+                    # M/S frames carry one window layout across both channels: the
+                    # raw L/R verdicts, the more transient winning (pipeline.py:388-403)
+                    shared = torch.amax(raw_verdicts(), dim=1, keepdim=True)
+                    block_b = torch.where(use_ms[:, None, :, None], shared, block_b)
+                if lsf and not iso_short:
+                    # LSF mixed blocks need the ISO layout of iso_short_blocks;
+                    # without it they are SHORT (pipeline.py:380-387, 398-401:
+                    # demoting before the shared maximum is demoting after it)
+                    block_b = torch.where(block_b == dsp.BLOCK_MIXED, dsp.BLOCK_SHORT, block_b)
+                if is_shared_blk is not None:
+                    # intensity-gated frames share the raw verdict (pipeline.py:404-411)
+                    block_b = torch.where(
+                        is_gate[:, None, :, None], is_shared_blk[:, None], block_b
+                    )
+                if iso_quant:
+                    # the unit-gain law emits no per-window gains (pipeline.py:412-417)
+                    sb_gain_b = torch.zeros_like(sb_gain_b)
+            spectra, cur = dsp.mdct_chunk(
+                S, carry["overlap"], block_b.reshape(B, ch, n_gr * T),
+                iso_mixed_alias=iso_short, window_seq=win_seq,
+            )
+            spectra = spectra.reshape(B, ch, T, n_gr, 576)
+            if cut_sb is not None:
+                spectra = lowpass_stage(spectra, block_b, cut_sb, options.adaptive_lowpass)
 
-        is_emit = None  # [B, T] frames that emit mode_extension 0b01
-        if is_gate is not None:
-            spectra, is_emit, is_sets = intensity_stage(spectra, block_b, is_gate, sr)
+            is_emit = None  # [B, T] frames that emit mode_extension 0b01
+            if is_gate is not None:
+                spectra, is_emit, is_sets = intensity_stage(spectra, block_b, is_gate, sr)
 
         sfd = scfsi_nib = sf_write = None
         pad_part2 = None
         if strict:
-            is_long_b = block_b == dsp.BLOCK_LONG
-            # START and STOP granules take the long scalefactor layout and
-            # scfsi, but not the long entropy regions (pipeline.py:507-520)
-            transition = block_b > dsp.BLOCK_SHORT
-            sf_block_b = torch.where(transition, dsp.BLOCK_LONG, block_b)
-            long_layout_b = is_long_b | transition
-            if options.real_scalefactors:
-                sfd = dsp.granule_scalefactors_device(
-                    spectra, sr, sf_block_b, psy=options.psy_scalefactors,
-                    iso_short=iso_short, lsf=lsf,
-                )
-                g0 = dsp.initial_gain_scaled(
-                    spectra, sfd["mag_scale"], target=LINBITS_Q_TARGET if linbits else 15.0
-                )
-                mag_scale, part2 = sfd["mag_scale"], sfd["part2"]
-                if options.scfsi and not lsf:
-                    # granule 1 skips the band groups equal to granule 0's
-                    # (an LSF frame has one granule: no scfsi)
-                    scfsi_nib, sf_write = dsp.scfsi_device(sfd["sf"], long_layout_b)
-                    part2 = dsp.scfsi_part2_device(sfd, sf_write)
-                if is_emit is not None:
-                    # the intensity pricing pad (pipeline.py:547-565): the
-                    # post-walk overwrite may grow the right channel's slots
-                    # of emitted frames to the marker 7. Distortion control
-                    # never engages those frames, so the first scalefactors
-                    # price them in every pass.
-                    pad_part2 = functools.partial(intensity_pad, sfd=sfd, sets=is_sets)
-            else:
-                g0 = dsp.initial_gain(spectra, iso=iso_quant)
-                mag_scale = part2 = None
+            with annotate("chunk.scalefactors"):
+                is_long_b = block_b == dsp.BLOCK_LONG
+                # START and STOP granules take the long scalefactor layout and
+                # scfsi, but not the long entropy regions (pipeline.py:507-520)
+                transition = block_b > dsp.BLOCK_SHORT
+                sf_block_b = torch.where(transition, dsp.BLOCK_LONG, block_b)
+                long_layout_b = is_long_b | transition
+                if options.real_scalefactors:
+                    sfd = dsp.granule_scalefactors_device(
+                        spectra, sr, sf_block_b, psy=options.psy_scalefactors,
+                        iso_short=iso_short, lsf=lsf,
+                    )
+                    g0 = dsp.initial_gain_scaled(
+                        spectra, sfd["mag_scale"], target=LINBITS_Q_TARGET if linbits else 15.0
+                    )
+                    mag_scale, part2 = sfd["mag_scale"], sfd["part2"]
+                    if options.scfsi and not lsf:
+                        # granule 1 skips the band groups equal to granule 0's
+                        # (an LSF frame has one granule: no scfsi)
+                        scfsi_nib, sf_write = dsp.scfsi_device(sfd["sf"], long_layout_b)
+                        part2 = dsp.scfsi_part2_device(sfd, sf_write)
+                    if is_emit is not None:
+                        # the intensity pricing pad (pipeline.py:547-565): the
+                        # post-walk overwrite may grow the right channel's slots
+                        # of emitted frames to the marker 7. Distortion control
+                        # never engages those frames, so the first scalefactors
+                        # price them in every pass.
+                        pad_part2 = functools.partial(intensity_pad, sfd=sfd, sets=is_sets)
+                else:
+                    g0 = dsp.initial_gain(spectra, iso=iso_quant)
+                    mag_scale = part2 = None
 
-            b0_sw = switch_region0(block_b, sr) if lsf else None
+                b0_sw = switch_region0(block_b, sr) if lsf else None
 
             def sweep(g0, mag_scale, part2):
                 if pad_part2 is not None:
@@ -615,25 +620,29 @@ def make_chunk_fn(options: MP3EncoderOptions):
                     block=block_b, iso_short=iso_short, linbits=linbits, b0_switch=b0_sw,
                 )
 
-            pre = sweep(g0, mag_scale, part2)
-            # the demand probes read the first pass's table (pipeline.py:600)
-            demand_bits = pre["bits"]
-            if options.distortion_control_active:
-                engaged = torch.all(block_b == dsp.BLOCK_LONG, dim=(1, 3))  # [B, T] all-LONG frames
-                if is_emit is not None:
-                    engaged = engaged & ~is_emit
-                engaged = engaged[:, None, :, None].expand(block_b.shape)
-                for _ in range(options.dc_passes):
-                    sfd, g0 = distortion_pass(
-                        pre, spectra, sfd, engaged, probe_budget, sr, options.dc_proportional
-                    )
-                    mag_scale, part2 = sfd["mag_scale"], sfd["part2"]
-                    pre = None  # release the pass's sweep before the next
-                    pre = sweep(g0, mag_scale, part2)
+            with annotate("chunk.sweep"):
+                pre = sweep(g0, mag_scale, part2)
+                # the demand probes read the first pass's table (pipeline.py:600)
+                demand_bits = pre["bits"]
+                if options.distortion_control_active:
+                    # [B, T] all-LONG frames
+                    engaged = torch.all(block_b == dsp.BLOCK_LONG, dim=(1, 3))
+                    if is_emit is not None:
+                        engaged = engaged & ~is_emit
+                    engaged = engaged[:, None, :, None].expand(block_b.shape)
+                    for _ in range(options.dc_passes):
+                        sfd, g0 = distortion_pass(
+                            pre, spectra, sfd, engaged, probe_budget, sr, options.dc_proportional
+                        )
+                        mag_scale, part2 = sfd["mag_scale"], sfd["part2"]
+                        pre = None  # release the pass's sweep before the next
+                        pre = sweep(g0, mag_scale, part2)
         else:
-            g0 = dsp.initial_gain(spectra, iso=iso_quant)
-            pre = dsp.rate_loop_precompute(spectra, g0, iso=iso_quant)
-            demand_bits = pre["bits"]
+            with annotate("chunk.scalefactors"):
+                g0 = dsp.initial_gain(spectra, iso=iso_quant)
+            with annotate("chunk.sweep"):
+                pre = dsp.rate_loop_precompute(spectra, g0, iso=iso_quant)
+                demand_bits = pre["bits"]
 
         def tm(x):  # [B, ch, T, gr, ...] -> [T, B, G, ...], G = gr*ch + c
             rest = tuple(range(4, x.dim()))
@@ -688,201 +697,208 @@ def make_chunk_fn(options: MP3EncoderOptions):
             return mdb, torch.clamp(sl, min=0)
 
         # ---------------- Phase 2: integer loop over T ----------------
-        c = {
-            k: carry[k]
-            for k in ("stream_len", "avail", "pad_rem", "slot_fifo", "vbr_ehist", "vbr_count")
-        }
-        if strict:
-            # the selection runs in the priced world; the real stream_len and
-            # mdb come from the second loop below on the actual bits
-            c["stream_len"] = carry["est_stream_len"]
-        if not is_vbr:
-            br_idx_c = torch.full((B,), cbr_index, dtype=i32, device=dev)
-            br_val_c = torch.full((B,), cbr_value, dtype=i32, device=dev)
-        ys = []
-        for t in range(T):
-            fin = final_t[t]
-            val = valid_t[t]
-            if vbr_demand:
-                target = demand_vbr_bitrate(frame_demand_t[t], slots_c, cands_c)
-                br_idx = dsp.bitrate_index_device(target, sr)
-                br_val = dsp.bitrate_value_device(br_idx, lsf=lsf)
-            elif is_vbr:
-                target = dsp.vbr_choose_bitrate(
-                    frame_e[t], c["vbr_ehist"], c["vbr_count"], base_kbps, quality
-                )
-                br_idx = dsp.bitrate_index_device(target, sr)
-                br_val = dsp.bitrate_value_device(br_idx, lsf=lsf)
-            else:
-                br_idx, br_val = br_idx_c, br_val_c
-
-            numerator = slots_per_kbps * br_val * 1000
-            base_size = numerator // sr
-            pad_acc = c["pad_rem"] + numerator % sr
-            padding = (pad_acc >= sr).to(i32)
-            pad_rem = pad_acc - padding * sr
-            slot = base_size + padding - 4 - crc_size - side_size
-
-            gap = gap_of(c)
-            res_bits = torch.where(fin, 0, c["avail"] * 8)
-            usable = (res_bits * 9) // 10
-            if aligned:
-                # the depth-general expressibility cap: a frame's data lands
-                # only in still-buffered slots, within main_data_begin's reach
-                usable = torch.minimum(usable, torch.clamp(gap, 0, res_cap) * 8)
-            total_bits = slot * 8 + usable
-            bits_per_granule = total_bits // n_gran
-            if linbits:
-                # ESC coding can reach the 12-bit part2_3_length field
-                bits_per_granule = torch.clamp(bits_per_granule, max=PART23_MAX_BITS)
-            if demand_budget:
-                max_bits = demand_budget_bits(demand_t[t], total_bits, bits_per_granule)
-            else:
-                max_bits = bits_per_granule[:, None]
-
-            k_sel, has_fit, bits_sel = dsp.rate_loop_select(
-                bits_t[t], evaluated_t[t], k_budget_t[t], max_bits
-            )
-            huffman_bytes = (torch.sum(bits_sel, dim=-1, dtype=i32) + 7) // 8
-            mdb, stream_len = placement(c, gap, huffman_bytes, fin)
-            new_c = {
-                "stream_len": stream_len,
-                "avail": torch.clamp(c["avail"] + slot - huffman_bytes, 0, res_cap),
-                "pad_rem": pad_rem,
-                "slot_fifo": torch.cat([c["slot_fifo"][:, 1:], slot[:, None]], dim=1),
-                "vbr_ehist": torch.cat([c["vbr_ehist"][:, n_gran:], granule_e[t]], dim=1),
-                "vbr_count": torch.clamp(c["vbr_count"] + n_gran, max=10),
+        with annotate("chunk.loop_t"):
+            c = {
+                k: carry[k]
+                for k in ("stream_len", "avail", "pad_rem", "slot_fifo", "vbr_ehist", "vbr_count")
             }
-            c = keep(new_c, c, val)
-            ys.append((br_idx, padding, mdb, slot, k_sel, has_fit, bits_sel))
-        br_idx, padding, mdb, slot, k_sel, has_fit, bits_sel = (
-            torch.stack(y) for y in zip(*ys)
-        )
+            if strict:
+                # the selection runs in the priced world; the real stream_len and
+                # mdb come from the second loop below on the actual bits
+                c["stream_len"] = carry["est_stream_len"]
+            if not is_vbr:
+                br_idx_c = torch.full((B,), cbr_index, dtype=i32, device=dev)
+                br_val_c = torch.full((B,), cbr_value, dtype=i32, device=dev)
+            ys = []
+            for t in range(T):
+                fin = final_t[t]
+                val = valid_t[t]
+                if vbr_demand:
+                    target = demand_vbr_bitrate(frame_demand_t[t], slots_c, cands_c)
+                    br_idx = dsp.bitrate_index_device(target, sr)
+                    br_val = dsp.bitrate_value_device(br_idx, lsf=lsf)
+                elif is_vbr:
+                    target = dsp.vbr_choose_bitrate(
+                        frame_e[t], c["vbr_ehist"], c["vbr_count"], base_kbps, quality
+                    )
+                    br_idx = dsp.bitrate_index_device(target, sr)
+                    br_val = dsp.bitrate_value_device(br_idx, lsf=lsf)
+                else:
+                    br_idx, br_val = br_idx_c, br_val_c
+
+                numerator = slots_per_kbps * br_val * 1000
+                base_size = numerator // sr
+                pad_acc = c["pad_rem"] + numerator % sr
+                padding = (pad_acc >= sr).to(i32)
+                pad_rem = pad_acc - padding * sr
+                slot = base_size + padding - 4 - crc_size - side_size
+
+                gap = gap_of(c)
+                res_bits = torch.where(fin, 0, c["avail"] * 8)
+                usable = (res_bits * 9) // 10
+                if aligned:
+                    # the depth-general expressibility cap: a frame's data lands
+                    # only in still-buffered slots, within main_data_begin's reach
+                    usable = torch.minimum(usable, torch.clamp(gap, 0, res_cap) * 8)
+                total_bits = slot * 8 + usable
+                bits_per_granule = total_bits // n_gran
+                if linbits:
+                    # ESC coding can reach the 12-bit part2_3_length field
+                    bits_per_granule = torch.clamp(bits_per_granule, max=PART23_MAX_BITS)
+                if demand_budget:
+                    max_bits = demand_budget_bits(demand_t[t], total_bits, bits_per_granule)
+                else:
+                    max_bits = bits_per_granule[:, None]
+
+                k_sel, has_fit, bits_sel = dsp.rate_loop_select(
+                    bits_t[t], evaluated_t[t], k_budget_t[t], max_bits
+                )
+                huffman_bytes = (torch.sum(bits_sel, dim=-1, dtype=i32) + 7) // 8
+                mdb, stream_len = placement(c, gap, huffman_bytes, fin)
+                new_c = {
+                    "stream_len": stream_len,
+                    "avail": torch.clamp(c["avail"] + slot - huffman_bytes, 0, res_cap),
+                    "pad_rem": pad_rem,
+                    "slot_fifo": torch.cat([c["slot_fifo"][:, 1:], slot[:, None]], dim=1),
+                    "vbr_ehist": torch.cat([c["vbr_ehist"][:, n_gran:], granule_e[t]], dim=1),
+                    "vbr_count": torch.clamp(c["vbr_count"] + n_gran, max=10),
+                }
+                c = keep(new_c, c, val)
+                ys.append((br_idx, padding, mdb, slot, k_sel, has_fit, bits_sel))
+            br_idx, padding, mdb, slot, k_sel, has_fit, bits_sel = (
+                torch.stack(y) for y in zip(*ys)
+            )
 
         # ---------------- Phase 3: parallel finalize (batch-major) --------
-        new_carry = dict(c)
-        if strict:
-            q_fixup = None
-            if is_emit is not None:
-                q_fixup = functools.partial(intensity_q_fixup, sets=is_sets, sample_rate=sr)
-            gain_b, quantized, lay = dsp.strict_finalize(
-                pre, bm(k_sel), bm(has_fit), q_fixup=q_fixup
-            )
-            if is_emit is not None:
-                # the post-walk position slots and the actual part2
-                # (pipeline.py:928-957)
-                sfd = intensity_post_walk_sfd(sfd, quantized, is_sets, sr)
-                part2 = sfd["part2"]
-            # part2_3_length and the reservoir on the ACTUAL bits of the
-            # selected gains (pipeline.py:958-1006)
-            part23 = tm(lay["bits"] + (part2 if part2 is not None else 0))
-            hb_t = (torch.sum(part23, dim=-1, dtype=i32) + 7) // 8
-            c2 = {"stream_len": carry["stream_len"], "slot_fifo": carry["slot_fifo"]}
-            mdbs = []
-            for t in range(T):
-                mdb_t, sl = placement(c2, gap_of(c2), hb_t[t], final_t[t])
-                new_c2 = {
-                    "stream_len": sl,
-                    "slot_fifo": torch.cat([c2["slot_fifo"][:, 1:], slot[t][:, None]], dim=1),
-                }
-                c2 = keep(new_c2, c2, valid_t[t])
-                mdbs.append(mdb_t)
-            mdb = torch.stack(mdbs)
-            new_carry["est_stream_len"] = c["stream_len"]
-            new_carry["stream_len"] = c2["stream_len"]
-            big_values_b = lay["bv"]
-            region0_b, region1_b = lay["r0"], lay["r1"]
-            table_sel = torch.stack(
-                [tm(lay["tid0"]), tm(lay["tid1"]), tm(lay["tid2"])], dim=-1
-            ).reshape(T, B, 3 * n_gran)
-            c1t_b = lay["c1t"]
-            chunks, nb = dsp.strict_chunks_device(quantized, lay, linbits=linbits)
-            if sfd is not None:
-                # the scalefactor bits lead each granule's main_data (part2)
-                sf_chunks, sf_nbits = dsp.scalefactor_chunks_device(sfd, sf_write)
-                chunks = torch.cat([sf_chunks, chunks], dim=-1)
-                nb = torch.cat([sf_nbits, nb], dim=-1)
-                scfc_b = sfd["compress"]
+        with annotate("chunk.finalize"):
+            new_carry = dict(c)
+            if strict:
+                q_fixup = None
+                if is_emit is not None:
+                    q_fixup = functools.partial(intensity_q_fixup, sets=is_sets, sample_rate=sr)
+                gain_b, quantized, lay = dsp.strict_finalize(
+                    pre, bm(k_sel), bm(has_fit), q_fixup=q_fixup
+                )
+                if is_emit is not None:
+                    # the post-walk position slots and the actual part2
+                    # (pipeline.py:928-957)
+                    sfd = intensity_post_walk_sfd(sfd, quantized, is_sets, sr)
+                    part2 = sfd["part2"]
+                # part2_3_length and the reservoir on the ACTUAL bits of the
+                # selected gains (pipeline.py:958-1006)
+                part23 = tm(lay["bits"] + (part2 if part2 is not None else 0))
+                hb_t = (torch.sum(part23, dim=-1, dtype=i32) + 7) // 8
+                with annotate("chunk.loop_t"):
+                    c2 = {"stream_len": carry["stream_len"], "slot_fifo": carry["slot_fifo"]}
+                    mdbs = []
+                    for t in range(T):
+                        mdb_t, sl = placement(c2, gap_of(c2), hb_t[t], final_t[t])
+                        new_c2 = {
+                            "stream_len": sl,
+                            "slot_fifo": torch.cat(
+                                [c2["slot_fifo"][:, 1:], slot[t][:, None]], dim=1
+                            ),
+                        }
+                        c2 = keep(new_c2, c2, valid_t[t])
+                        mdbs.append(mdb_t)
+                    mdb = torch.stack(mdbs)
+                new_carry["est_stream_len"] = c["stream_len"]
+                new_carry["stream_len"] = c2["stream_len"]
+                big_values_b = lay["bv"]
+                region0_b, region1_b = lay["r0"], lay["r1"]
+                table_sel = torch.stack(
+                    [tm(lay["tid0"]), tm(lay["tid1"]), tm(lay["tid2"])], dim=-1
+                ).reshape(T, B, 3 * n_gran)
+                c1t_b = lay["c1t"]
+                chunks, nb = dsp.strict_chunks_device(quantized, lay, linbits=linbits)
+                if sfd is not None:
+                    # the scalefactor bits lead each granule's main_data (part2)
+                    sf_chunks, sf_nbits = dsp.scalefactor_chunks_device(sfd, sf_write)
+                    chunks = torch.cat([sf_chunks, chunks], dim=-1)
+                    nb = torch.cat([sf_nbits, nb], dim=-1)
+                    scfc_b = sfd["compress"]
+                else:
+                    scfc_b = torch.zeros_like(big_values_b)
             else:
-                scfc_b = torch.zeros_like(big_values_b)
-        else:
-            part23 = bits_sel
-            gain_b, quantized, big_values_b = dsp.rate_loop_finalize(
-                pre, bm(k_sel), bm(has_fit)
+                part23 = bits_sel
+                gain_b, quantized, big_values_b = dsp.rate_loop_finalize(
+                    pre, bm(k_sel), bm(has_fit)
+                )
+                region0_b, region1_b = dsp.region_counts(big_values_b, sr)
+                table_sel = torch.full((T, B, 3 * n_gran), 15, dtype=i32, device=dev)
+                c1t_b = scfc_b = torch.zeros_like(big_values_b)
+                chunks, nb = dsp.pair_chunks_device(quantized, big_values_b)
+                new_carry["est_stream_len"] = carry["est_stream_len"]
+            if iso_quant:
+                pref_b = torch.zeros_like(big_values_b)  # no pre-emphasis applied
+            else:
+                pref_b = dsp.preflag(spectra)
+
+            def frame_major(x):  # [B, ch, T, gr, W] -> [B*T, n_gran*W], (gr, ch) order
+                return x.permute(0, 2, 3, 1, 4).reshape(B * T, n_gran * x.shape[-1])
+
+        with annotate("chunk.pack"):
+            main_data, _ = kernels.pack(
+                frame_major(chunks).contiguous(), frame_major(nb).contiguous(), cap_bytes
             )
-            region0_b, region1_b = dsp.region_counts(big_values_b, sr)
-            table_sel = torch.full((T, B, 3 * n_gran), 15, dtype=i32, device=dev)
-            c1t_b = scfc_b = torch.zeros_like(big_values_b)
-            chunks, nb = dsp.pair_chunks_device(quantized, big_values_b)
-            new_carry["est_stream_len"] = carry["est_stream_len"]
-        if iso_quant:
-            pref_b = torch.zeros_like(big_values_b)  # no pre-emphasis applied
-        else:
-            pref_b = dsp.preflag(spectra)
+            main_data = main_data.reshape(B, T, cap_bytes)
 
-        def frame_major(x):  # [B, ch, T, gr, W] -> [B*T, n_gran*W], (gr, ch) order
-            return x.permute(0, 2, 3, 1, 4).reshape(B * T, n_gran * x.shape[-1])
-
-        main_data, _ = kernels.pack(
-            frame_major(chunks).contiguous(), frame_major(nb).contiguous(), cap_bytes
-        )
-        main_data = main_data.reshape(B, T, cap_bytes)
-
-        if scfsi_nib is not None:
-            scfsi_t = scfsi_nib.permute(2, 0, 1)  # [B, ch, T] -> [T, B, ch]
-        else:
-            scfsi_t = torch.zeros((T, B, ch), dtype=i32, device=dev)
-        if use_ms is not None and options.iso_mode_ext:
-            # the header carries each frame's actual M/S decision
-            mode_ext_t = torch.where(use_ms.transpose(0, 1), 2, 0)
-        else:
-            mode_ext_t = torch.full((T, B), mode_ext, dtype=i32, device=dev)
-        if is_emit is not None:
-            mode_ext_t = torch.where(is_emit.transpose(0, 1), 1, mode_ext_t)  # intensity
-        meta = torch.cat(
-            [
-                br_idx[..., None],
-                padding[..., None],
-                mdb[..., None],
-                slot[..., None],
-                part23,  # part2_3_length
-                tm(big_values_b),
-                tm(gain_b),
-                tm(block_b),
-                tm(pref_b),
-                tm(region0_b),
-                tm(region1_b),
-                tm(sb_gain_b).reshape(T, B, 3 * n_gran),
-                table_sel,
-                tm(c1t_b),  # count1table
-                tm(scfc_b),  # scalefac_compress
-                scfsi_t,
-                mode_ext_t[..., None].to(i32),
-            ],
-            dim=-1,
-        ).to(i32)
-        meta_bytes = meta.transpose(0, 1).contiguous().view(torch.uint8).reshape(B, T, -1)
-        outputs = {"packed": torch.cat([main_data, meta_bytes], dim=-1)}
+            if scfsi_nib is not None:
+                scfsi_t = scfsi_nib.permute(2, 0, 1)  # [B, ch, T] -> [T, B, ch]
+            else:
+                scfsi_t = torch.zeros((T, B, ch), dtype=i32, device=dev)
+            if use_ms is not None and options.iso_mode_ext:
+                # the header carries each frame's actual M/S decision
+                mode_ext_t = torch.where(use_ms.transpose(0, 1), 2, 0)
+            else:
+                mode_ext_t = torch.full((T, B), mode_ext, dtype=i32, device=dev)
+            if is_emit is not None:
+                mode_ext_t = torch.where(is_emit.transpose(0, 1), 1, mode_ext_t)  # intensity
+            meta = torch.cat(
+                [
+                    br_idx[..., None],
+                    padding[..., None],
+                    mdb[..., None],
+                    slot[..., None],
+                    part23,  # part2_3_length
+                    tm(big_values_b),
+                    tm(gain_b),
+                    tm(block_b),
+                    tm(pref_b),
+                    tm(region0_b),
+                    tm(region1_b),
+                    tm(sb_gain_b).reshape(T, B, 3 * n_gran),
+                    table_sel,
+                    tm(c1t_b),  # count1table
+                    tm(scfc_b),  # scalefac_compress
+                    scfsi_t,
+                    mode_ext_t[..., None].to(i32),
+                ],
+                dim=-1,
+            ).to(i32)
+            meta_bytes = meta.transpose(0, 1).contiguous().view(torch.uint8).reshape(B, T, -1)
+            outputs = {"packed": torch.cat([main_data, meta_bytes], dim=-1)}
 
         # ---------------- Carry-out at each stream's last valid frame -------
-        count_valid = torch.sum(valid, dim=1)  # [B] int64
-        # trailing-480 slab of frame t starts at full_x[spf * t]
-        idx = (count_valid * spf)[:, None, None] + torch.arange(480, device=dev)
-        fb_hist = torch.gather(full_x, 2, idx.expand(B, ch, 480))
-        all_ov = torch.cat([carry["overlap"][:, :, None, :], cur], dim=2)
-        gi = (n_gr * count_valid)[:, None, None, None].expand(B, ch, 1, 576)
-        overlap = torch.gather(all_ov, 2, gi)[:, :, 0]
+        with annotate("chunk.carry_out"):
+            count_valid = torch.sum(valid, dim=1)  # [B] int64
+            # trailing-480 slab of frame t starts at full_x[spf * t]
+            idx = (count_valid * spf)[:, None, None] + torch.arange(480, device=dev)
+            fb_hist = torch.gather(full_x, 2, idx.expand(B, ch, 480))
+            all_ov = torch.cat([carry["overlap"][:, :, None, :], cur], dim=2)
+            gi = (n_gr * count_valid)[:, None, None, None].expand(B, ch, 1, 576)
+            overlap = torch.gather(all_ov, 2, gi)[:, :, 0]
 
-        new_carry["fb_hist"] = fb_hist
-        new_carry["overlap"] = overlap
-        if win_seq:
-            new_carry["seq_prev_short"] = seq_ps
-            new_carry["seq_prev_want"] = seq_pw
-            # the last valid granule's tails (index 0: the carry, when no
-            # frame is valid), gathered: the +inf sentinel meets no product
-            ext_tails = torch.cat([carry["onset_prev2"][:, :, None, :], onset_tails], dim=2)
-            gi = (n_gr * count_valid)[:, None, None, None].expand(B, ext_tails.shape[1], 1, 2)
-            new_carry["onset_prev2"] = torch.gather(ext_tails, 2, gi)[:, :, 0]
+            new_carry["fb_hist"] = fb_hist
+            new_carry["overlap"] = overlap
+            if win_seq:
+                new_carry["seq_prev_short"] = seq_ps
+                new_carry["seq_prev_want"] = seq_pw
+                # the last valid granule's tails (index 0: the carry, when no
+                # frame is valid), gathered: the +inf sentinel meets no product
+                ext_tails = torch.cat([carry["onset_prev2"][:, :, None, :], onset_tails], dim=2)
+                gi = (n_gr * count_valid)[:, None, None, None].expand(B, ext_tails.shape[1], 1, 2)
+                new_carry["onset_prev2"] = torch.gather(ext_tails, 2, gi)[:, :, 0]
         return new_carry, outputs
 
     return run

@@ -25,6 +25,7 @@ that spans processes.
 from __future__ import annotations
 
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence
 
@@ -44,6 +45,8 @@ from ..models.pipeline import (
 )
 from ..native import NativeStreamRenderer
 from ..options import SAMPLES_PER_GRANULE, MP3EncoderOptions
+from ..utils import profiling
+from ..utils.profiling import annotate
 from .mesh import (
     carry_sharding,
     make_mesh,
@@ -100,6 +103,7 @@ class BatchEncoder:
             if render_threads > 1 and rows > 1
             else None
         )
+        self._render_threads = render_threads
         self._carries = [init_carry(hi - lo, options, dev) for dev, lo, hi in spans]
         self._init = None  # the fresh carries reset_lanes selects from, built once
         self.use_native = use_native
@@ -147,10 +151,11 @@ class BatchEncoder:
     ):
         """Start the host->device upload of a chunk's inputs; pass the
         result to step() so the transfer overlaps other work."""
-        out = (self._put(pcm), self._put(final), self._put(valid))
-        if lookahead is not None:
-            out = out + (self._put(lookahead),)
-        return out
+        with annotate("batch.prepare"):
+            out = (self._put(pcm), self._put(final), self._put(valid))
+            if lookahead is not None:
+                out = out + (self._put(lookahead),)
+            return out
 
     def step(self, pcm, final, valid, lookahead=None) -> dict:
         """Run one chunk. pcm: [B, T, 1152*ch] float32 or int16 (normalized
@@ -160,33 +165,37 @@ class BatchEncoder:
         granule, zeros past a stream's end. Returns the outputs, their
         device->host copy already in flight (with a mesh of several local
         positions, {"parts": one output a position})."""
-        n = len(self._spans)
-        la = [None] * n
-        if self.options.window_sequencing:
-            if lookahead is None:
-                raise ValueError(
-                    "window_sequencing needs the per-frame lookahead chunk "
-                    "[B, T, 576*ch] (each frame's next raw granule)"
+        with annotate("batch.step"):
+            n = len(self._spans)
+            la = [None] * n
+            if self.options.window_sequencing:
+                if lookahead is None:
+                    raise ValueError(
+                        "window_sequencing needs the per-frame lookahead chunk "
+                        "[B, T, 576*ch] (each frame's next raw granule)"
+                    )
+                la = self._parts(lookahead)
+            pcm, final, valid = self._parts(pcm), self._parts(final), self._parts(valid)
+            parts = []
+            for k, (dev, _, _) in enumerate(self._spans):
+                self._carries[k], outs = self._run(
+                    self._carries[k], pcm[k], final[k], valid[k], la[k]
                 )
-            la = self._parts(lookahead)
-        pcm, final, valid = self._parts(pcm), self._parts(final), self._parts(valid)
-        parts = []
-        for k, (dev, _, _) in enumerate(self._spans):
-            self._carries[k], outs = self._run(self._carries[k], pcm[k], final[k], valid[k], la[k])
-            parts.append(self._fetch(outs["packed"], dev))
-        return parts[0] if n == 1 else {"parts": parts}
+                parts.append(self._fetch(outs["packed"], dev))
+            return parts[0] if n == 1 else {"parts": parts}
 
     @staticmethod
     def _fetch(packed: torch.Tensor, device: torch.device) -> dict:
         """Start the copy of a position's packed output to pinned host
         memory behind an event (on the CPU, the tensor itself)."""
-        if device.type != "cuda":
-            return {"packed": packed}
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(device))
-        return {"packed": host, "ready": ready}
+        with annotate("batch.fetch"):
+            if device.type != "cuda":
+                return {"packed": packed}
+            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+            return {"packed": host, "ready": ready}
 
     def reset_lanes(self, lanes) -> None:
         """Give the masked lanes a fresh stream's state: the device carry of
@@ -216,21 +225,37 @@ class BatchEncoder:
     def drain(self, outs: dict, valid: np.ndarray) -> List[bytes]:
         """Render one chunk's outputs to bytes per stream (streams render in
         parallel; the native renderer runs without the interpreter lock)."""
-        parts = outs["parts"] if "parts" in outs else [outs]
-        for p in parts:
-            if "ready" in p:
-                p["ready"].synchronize()
+        with annotate("batch.drain"):
+            parts = outs["parts"] if "parts" in outs else [outs]
+            with annotate("drain.wait"):
+                for p in parts:
+                    if "ready" in p:
+                        p["ready"].synchronize()
+            with annotate("drain.render"):
+                return self._render(parts, valid)
+
+    def _render(self, parts: list, valid: np.ndarray) -> List[bytes]:
+        """drain's host half, once the copies have landed. Traced, the render
+        counts its pool's size (`render.threads`) and the time each stream's
+        render takes (`render.busy_ns`, summed over the pool's threads)."""
+        traced = profiling.enabled()
+        if traced:
+            threads = self._render_threads if self._pool is not None and self.use_native else 1
+            profiling.count("render.threads", threads)
         packed = parts[0]["packed"] if len(parts) == 1 else torch.cat([p["packed"] for p in parts])
         outs = fetch_outputs({"packed": packed}, self.options)
         valid = np.asarray(valid)
         B = valid.shape[0]
         if not self.use_native:
+            t0 = time.perf_counter_ns()
             emitted = [bytearray() for _ in range(B)]
             for t in range(valid.shape[1]):
                 for b in range(B):
                     if valid[b, t]:
                         fr = frame_results_from_outputs(outs, self.options, t, b)
                         emitted[b] += self.renderers[b].push(fr)
+            if traced:
+                profiling.count("render.busy_ns", time.perf_counter_ns() - t0)
             return [bytes(e) for e in emitted]
         counts = valid.sum(axis=1)  # valid is a prefix along T
 
@@ -257,6 +282,16 @@ class BatchEncoder:
                 scfsi=outs["scfsi"][b, :F],
                 mode_ext=outs["mode_ext"][b, :F],
             )
+
+        if traced:
+            untimed = render_one
+
+            def render_one(b: int) -> bytes:
+                t0 = time.perf_counter_ns()
+                try:
+                    return untimed(b)
+                finally:
+                    profiling.count("render.busy_ns", time.perf_counter_ns() - t0)
 
         if self._pool is None:
             return [render_one(b) for b in range(B)]
@@ -314,6 +349,10 @@ class _Chunks:
     def build(self, start: int, t_total: int):
         """(pcm, final, valid, lookahead or None) of the chunk of frames
         [start, start + Tc), t_total frames in all."""
+        with annotate("batch.build"):
+            return self._build(start, t_total)
+
+    def _build(self, start: int, t_total: int):
         B, Tc, fl, la_len = self.rows, self.Tc, self.frame_len, self.la_len
         count = min(Tc, t_total - start)
         pcm = np.zeros((B, Tc, fl), dtype=self.pcm_dtype)
@@ -412,7 +451,8 @@ def encode_batch(
     if mesh is not None:
         B = -(-n_streams // mesh.size) * mesh.size
     chunks = _Chunks(options, streams, B, frames_per_step)
-    enc = BatchEncoder(options, B, frames_per_step, device, mesh=mesh)
+    with annotate("batch.setup"):
+        enc = BatchEncoder(options, B, frames_per_step, device, mesh=mesh)
     try:
         result = _encode_chunks(enc, chunks, chunks.frames, n_streams)
     finally:
@@ -463,7 +503,8 @@ def encode_batch_multihost(
         every = [torch.zeros_like(mine) for _ in range(n_proc)]
         torch.distributed.all_gather(every, mine)
         t_total = int(max(int(t) for t in every))
-    enc = BatchEncoder(options, B_global, frames_per_step, mesh=mesh)
+    with annotate("batch.setup"):
+        enc = BatchEncoder(options, B_global, frames_per_step, mesh=mesh)
     try:
         return _encode_chunks(enc, chunks, t_total, n_local)
     finally:
@@ -488,10 +529,11 @@ def encode_corpus(
         _return_encoder=True,
     )
     files = []
-    for b, audio in enumerate(frames):
-        r = enc.renderers[b]
-        tag = tags[b] if tags else options.id3_tag
-        id3 = build_id3_tag(tag) if tag else b""
-        xing = build_xing_header(options, r.frame_count, r.total_bytes, r.frame_sizes)
-        files.append(id3 + xing + audio)
+    with annotate("corpus.files"):
+        for b, audio in enumerate(frames):
+            r = enc.renderers[b]
+            tag = tags[b] if tags else options.id3_tag
+            id3 = build_id3_tag(tag) if tag else b""
+            xing = build_xing_header(options, r.frame_count, r.total_bytes, r.frame_sizes)
+            files.append(id3 + xing + audio)
     return files
