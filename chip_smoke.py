@@ -25,7 +25,11 @@ it runs are the port's copies). Phases:
      K3's time as a share of its bound, read three ways as K1 and K2 are;
   4. the main path: BatchEncoder at 256 streams x 128 frames, 128 kbps CBR
      stereo 44.1 kHz, 2 steps of unique int16 audio rendered to bytes, with
-     launch counts read around it; every stream's frame walk is checked;
+     launch counts read around it (K4's selection scan once a step, its
+     placement scan never); every stream's frame walk is checked; then
+     ([K4 compat]) K4 against its plain version, bit-exact, on the scan
+     inputs the main path gave it (256 streams x 128 frames, 4 granules),
+     with its time as K1's is read, its plain version's and its byte bound;
   4b. the strict path: BatchEncoder at MP3EncoderOptions.spec_strict(joint
      stereo, 128 kbps, 44.1 kHz), 256 streams x 128 frames, 2 steps of the
      same audio, launch counts read around it, every frame walk checked;
@@ -39,7 +43,10 @@ it runs are the port's copies). Phases:
      around each, every frame walk checked; then K2 against its plain
      version, bit-exact, on the pack input the hq path gave it (P = 4176
      slots a frame) and on the same slots three times over (every frame past
-     the cap), with its time, bound and share;
+     the cap), with its time, bound and share; K4's two scans once a step on
+     each strict and hq path, and ([K4 hq]) both against their plain
+     versions, bit-exact, on the hq joint path's first scan inputs, with
+     their times and bounds;
   4d. serving ([serve]): a StreamPool at bench.py's serving configuration
      (128 kbps CBR stereo 44.1 kHz, 64 lanes x 32 frames a step), unique
      int16 noise feeds (bench.py's: seed 7, normal x 4000), one warm step
@@ -49,7 +56,8 @@ it runs are the port's copies). Phases:
      inputs (CUDA events), the pinned int16 upload, one drain of a ready
      chunk; then K1 and K2 against their plain versions, bit-exact, on the
      inputs the pool gave them (8192 granules; P = 1152 slots a frame, and
-     those slots three times over), with their times and bounds;
+     those slots three times over), with their times and bounds, and
+     ([K4 serve]) K4 on the pool's first scan inputs (64 x 32 frames);
   4e. lane churn ([serve churn]): a pipelined pool at the serving shape that
      recycles lanes (1.5 x lanes streams, mixed lengths and dtypes, some
      drip-fed, some closed empty), a sample of streams (the recycled lanes'
@@ -398,16 +406,25 @@ class _CpuFilterbank:
 
 
 class _FirstInputs:
-    """Within it, the wrappers kernels.rate_sweep and kernels.pack keep a
-    copy of their first call's inputs, `sweep` (mag, gstart, iso) and `pack`
-    (chunks, nbits, cap), and launch and count as before."""
+    """Within it, the wrappers kernels.rate_sweep, kernels.pack,
+    kernels.rate_loop_scan and kernels.placement_scan keep a copy of their
+    first call's inputs, `sweep` (mag, gstart, iso), `pack` (chunks, nbits,
+    cap), `scan` (config, carry, keyword inputs) and `placement` (config,
+    carry, hb, slot, final, valid), and launch and count as before."""
 
     def __enter__(self):
         from swiftmp3_tpu_torch.ops import kernels
 
-        self.kernels, self.saved = kernels, (kernels.rate_sweep, kernels.pack)
-        self.sweep = self.pack = None
-        sweep, pack = self.saved
+        self.kernels = kernels
+        self.saved = (kernels.rate_sweep, kernels.pack, kernels.rate_loop_scan,
+                      kernels.placement_scan)
+        self.sweep = self.pack = self.scan = self.placement = None
+        sweep, pack, scan, placement = self.saved
+
+        def clone(x):
+            if isinstance(x, dict):
+                return {k: clone(v) for k, v in x.items()}
+            return x.clone() if hasattr(x, "clone") else x
 
         def rec_sweep(mag, gstart, iso=False):
             if self.sweep is None:
@@ -419,11 +436,24 @@ class _FirstInputs:
                 self.pack = (chunks.clone(), nbits.clone(), cap)
             return pack(chunks, nbits, cap)
 
+        def rec_scan(cfg, carry, *args, **kwargs):
+            if self.scan is None:
+                names = ("bits", "evaluated", "k_budget", "granule_e", "final", "valid")
+                self.scan = (cfg, clone(carry), clone({**dict(zip(names, args)), **kwargs}))
+            return scan(cfg, carry, *args, **kwargs)
+
+        def rec_placement(cfg, carry, *args):
+            if self.placement is None:
+                self.placement = (cfg, clone(carry), *clone(list(args)))
+            return placement(cfg, carry, *args)
+
         kernels.rate_sweep, kernels.pack = rec_sweep, rec_pack
+        kernels.rate_loop_scan, kernels.placement_scan = rec_scan, rec_placement
         return self
 
     def __exit__(self, *exc):
-        self.kernels.rate_sweep, self.kernels.pack = self.saved
+        (self.kernels.rate_sweep, self.kernels.pack, self.kernels.rate_loop_scan,
+         self.kernels.placement_scan) = self.saved
 
 
 def _sweep_bound(n: int) -> tuple[float, str]:
@@ -482,6 +512,67 @@ def _check_sweep(sweep_input, what: str, card: str) -> None:
           f"({'iso' if iso else 'compat'} law), {card}: "
           f"{_shares(ms, device_ms, host, bound_ms)}, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+
+
+def _tensor_bytes(*groups) -> int:
+    """The bytes of every tensor in the given dicts and tuples."""
+    total = 0
+    for group in groups:
+        for t in (group.values() if isinstance(group, dict) else group):
+            if t is not None:
+                total += t.numel() * t.element_size()
+    return total
+
+
+def _check_scans(first, what: str, card: str) -> dict:
+    """K4 against its plain versions, bit for bit, on a path's own first
+    scan inputs (and its placement scan's, on the strict paths); the
+    selection scan's time as events, device-only and host readings, its
+    plain version's time, and its bound: every byte of its inputs, outputs
+    and carry moved once (its work is a serial chain over T, which no
+    bound of bytes or operations sees)."""
+    import torch
+
+    from swiftmp3_tpu_torch.ops import kernels
+    from tools.torch_profile_step import cuda_ms
+
+    cfg, carry, ins = first.scan
+    T, B = ins["valid"].shape
+    K = carry["slot_fifo"].shape[1]
+    new, outs = kernels.rate_loop_scan(cfg, carry, **ins)
+    torch.cuda.synchronize()
+    p_new, p_outs = kernels.rate_loop_scan_plain(cfg, carry, **ins)
+    names = ("br_idx", "padding", "mdb", "slot", "k_sel", "has_fit", "bits_sel")
+    bad = [n for n, a, b in zip(names, outs, p_outs) if not torch.equal(a, b)]
+    bad += [k for k in new if not torch.equal(new[k], p_new[k])]
+    text = ""
+    if first.placement is not None:
+        p_cfg, p_carry, hb, slot, final, valid = first.placement
+        c2, mdb = kernels.placement_scan(p_cfg, p_carry, hb, slot, final, valid)
+        pc2, pmdb = kernels.placement_scan_plain(p_cfg, p_carry, hb, slot, final, valid)
+        bad += [f"placement {k}" for k in c2 if not torch.equal(c2[k], pc2[k])]
+        bad += ["placement mdb"] if not torch.equal(mdb, pmdb) else []
+        pl_ms, pl_device_ms, pl_host = _readings(
+            lambda: kernels.placement_scan(p_cfg, p_carry, hb, slot, final, valid))
+        pl_plain = cuda_ms(
+            lambda: kernels.placement_scan_plain(p_cfg, p_carry, hb, slot, final, valid),
+            reps=3, warmup=1,
+        )
+        pl_bound, _ = _bound(_tensor_bytes(p_carry, (hb, slot, final, valid, mdb), c2), 0)
+        text = (f"; placement_scan bit-exact: {_shares(pl_ms, pl_device_ms, pl_host, pl_bound)}, "
+                f"plain {pl_plain:.4f} ms, bound {pl_bound:.5f} ms (bytes)")
+    if bad:
+        raise AssertionError(f"[K4 {what}] the scans disagree with their plain versions on {bad}")
+    ms, device_ms, host = _readings(lambda: kernels.rate_loop_scan(cfg, carry, **ins))
+    plain_ms = cuda_ms(lambda: kernels.rate_loop_scan_plain(cfg, carry, **ins), reps=3, warmup=1)
+    bound_ms, bound_by = _bound(_tensor_bytes(carry, ins, outs, new), 0)
+    print(f"[K4 {what}] rate_loop_scan bit-exact on the {what} path's first inputs B={B} T={T} "
+          f"G={cfg.n_gran} K={K} ({cfg.rate_law}{', aligned' * cfg.aligned}"
+          f"{', demand budget' * cfg.demand_budget}), {card}: "
+          f"{_shares(ms, device_ms, host, bound_ms)}, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}){text}", flush=True)
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "device_ms": device_ms, "host_us": host}
 
 
 def _check_polyphase(hist, pcm, what: str) -> float:
@@ -689,6 +780,7 @@ def _serve(options, card: str) -> dict:
     # the kernels on the inputs the pool gave them (after the counts were read)
     _check_sweep(first.sweep, "serve", card)
     _check_pack(first.pack, "serve", card)
+    _check_scans(first, "serve", card)
     return launches
 
 
@@ -1192,7 +1284,7 @@ def _mesh(opts, audio, card: str) -> tuple:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        for name in ("rate_sweep", "pack"):
+        for name in ("rate_sweep", "pack", "rate_loop_scan"):
             if launches[name] != steps * positions:
                 raise AssertionError(f"[mesh] {label}: {launches[name]} launches of {name} in {steps} "
                                      f"steps over {positions} positions")
@@ -1240,7 +1332,8 @@ def _mesh(opts, audio, card: str) -> tuple:
     else:
         print("[mesh] this host has 1 card: the mesh of every card is one position, and K1 and K2 "
               "on a card other than the current one were not run (they need two cards)", flush=True)
-    total = {k: sum(r[3][k] for r in runs.values()) for k in ("rate_sweep", "pack")}
+    total = {k: sum(r[3][k] for r in runs.values())
+             for k in ("rate_sweep", "pack", "rate_loop_scan", "placement_scan")}
     return total, one
 
 
@@ -1643,10 +1736,12 @@ def main() -> int:
     phase_done("K3")
 
     # ---- 4. the main path -----------------------------------------------------
-    streams, step_ms, wall_s, main_launches, _ = _drive(opts, audio, STEPS_MAIN)
+    streams, step_ms, wall_s, main_launches, main_first = _drive(opts, audio, STEPS_MAIN)
     for name in ("rate_sweep", "pack"):
         if main_launches[name] <= 0:
             raise AssertionError(f"the main path never launched kernel {name}")
+    if (main_launches["rate_loop_scan"], main_launches["placement_scan"]) != (STEPS_MAIN, 0):
+        raise AssertionError(f"the main path's scans over T: launches {main_launches}")
     _check_walks(streams, STEPS_MAIN * T_MAIN)
     decode_paths = {"main": (opts, [a[:DECODE_ROWS] for a in audio], streams[:DECODE_ROWS])}
     audio_s = B_MAIN * T_MAIN * 1152 / opts.sample_rate
@@ -1656,6 +1751,8 @@ def main() -> int:
           f"{audio_s / (steady / 1e3):.1f} audio-s/s); step+render wall s "
           f"{['%.3f' % t for t in wall_s]}; {B_MAIN} streams x {STEPS_MAIN * T_MAIN} frames "
           f"walk OK; launches {main_launches}", flush=True)
+    report["rate_loop_scan"] = _check_scans(main_first, "compat", card)
+    del main_first
     phase_done("main")
 
     # ---- 4b. the strict path ---------------------------------------------------
@@ -1664,6 +1761,8 @@ def main() -> int:
     if s_launches["pack"] < STEPS_STRICT:
         raise AssertionError(f"the strict path launched pack {s_launches['pack']} times "
                              f"in {STEPS_STRICT} steps")
+    if (s_launches["rate_loop_scan"], s_launches["placement_scan"]) != (STEPS_STRICT,) * 2:
+        raise AssertionError(f"the strict path's scans over T: launches {s_launches}")
     _check_walks(s_streams, STEPS_STRICT * T_MAIN)
     print(f"[strict] BatchEncoder spec_strict {STRICT_OPTIONS} B={B_MAIN} T={T_MAIN} x "
           f"{STEPS_STRICT} steps, {card}: step device ms {['%.2f' % t for t in s_step_ms]} "
@@ -1686,6 +1785,8 @@ def main() -> int:
         if h_launches["pack"] < steps:
             raise AssertionError(f"the {preset} path launched pack {h_launches['pack']} "
                                  f"times in {steps} steps")
+        if (h_launches["rate_loop_scan"], h_launches["placement_scan"]) != (steps, steps):
+            raise AssertionError(f"the {preset} path's scans over T: launches {h_launches}")
         _check_walks(h_streams, steps * T_MAIN)
         hq_launches[preset] = h_launches
         print(f"[{preset}] BatchEncoder hq {HQ_OPTIONS[preset]} B={B_MAIN} T={T_MAIN} x {steps} "
@@ -1695,6 +1796,7 @@ def main() -> int:
               f"frames walk OK; launches {h_launches}", flush=True)
         if preset == "hq_joint":
             hq_pack = h_first.pack
+            _check_scans(h_first, "hq", card)
             decode_paths[preset] = (hq_opts[preset], [a[:DECODE_ROWS] for a in audio],
                                     h_streams[:DECODE_ROWS])
         del h_streams, h_first
@@ -1973,6 +2075,8 @@ def main() -> int:
          "swiftmp3_tpu/ops/pallas_kernels.py:237"),
         ("polyphase", "swiftmp3_tpu_torch/ops/csrc/polyphase.cu",
          "swiftmp3_tpu/ops/pallas_kernels.py:77"),
+        ("rate_loop_scan", "swiftmp3_tpu_torch/ops/csrc/rate_loop_scan.cu",
+         "none: the Phase 2 lax.scan of swiftmp3_tpu/models/pipeline.py"),
     ]
     # K1 and K2 counted on the main path, the serving pool, the LSF and
     # free-format paths, the mesh runs, the two processes and the graft
@@ -1983,6 +2087,12 @@ def main() -> int:
         for n in ("rate_sweep", "pack")
     }
     launches["polyphase"] = k3_launches
+    # K4's two entry points on the main, strict, hq, serving, LSF and mesh paths
+    launches["rate_loop_scan"] = sum(
+        main_launches[n] + s_launches[n] + sum(v[n] for v in hq_launches.values())
+        + serve_launches[n] + sum(v[n] for v in lsf_launches.values()) + mesh_launches[n]
+        for n in ("rate_loop_scan", "placement_scan")
+    )
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[n], **report[n]}

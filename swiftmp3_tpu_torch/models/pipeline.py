@@ -1,7 +1,7 @@
-"""The chunk program in PyTorch: chunk-parallel DSP + small integer loops
-over T. Twin of `swiftmp3_tpu.models.pipeline.make_chunk_fn` for the compat
-preset, the spec_strict preset and the hq preset with its flags (the static
-and adaptive lowpass, demand VBR, reservoir depth 1-8, distortion control,
+"""The chunk program in PyTorch: chunk-parallel DSP + integer scans over T.
+Twin of `swiftmp3_tpu.models.pipeline.make_chunk_fn` for the compat preset,
+the spec_strict preset and the hq preset with its flags (the static and
+adaptive lowpass, demand VBR, reservoir depth 1-8, distortion control,
 intensity stereo), at MPEG-1 rates and at the LSF rates of MPEG-2 and 2.5
 (8-24 kHz: one granule a frame, 72 slots a kbps, 9/17-byte side info, the
 255-byte reservoir reach, the 9-bit scalefac_compress, the band-derived
@@ -28,17 +28,17 @@ Per chunk of T frames x B streams:
     static equal share, bumps the scalefactors of violating bands in
     all-LONG frames and sweeps again; the demand probes keep the first
     sweep.
-  Phase 2 (loop over T, integers only): bitrate (the energy law, or under
-    vbr_demand the smallest rate whose slot covers the frame's priced
-    demand), padding, reservoir budget (split by the demand-donation law
+  Phase 2 (a scan over T, integers only; kernel K4): bitrate (the energy
+    law, or under vbr_demand the smallest rate whose slot covers the
+    frame's priced demand), padding, reservoir budget (split by the demand-donation law
     under demand_budget), candidate selection and the reservoir mirror
     (main_data_begin front-aligned at depth > 1). Invalid frames freeze the
     carry.
-    The strict path runs this loop on its priced stream-length mirror
+    The strict path runs this scan on its priced stream-length mirror
     (`est_stream_len`).
   Phase 3 (parallel): re-quantize at the selected gains; compat: regions,
     preflag, table-15 chunks; strict: the entropy layout, a second integer
-    loop over T on the actual bits (the real `stream_len` and
+    scan over T on the actual bits (the real `stream_len` and
     main_data_begin), scalefactor and pair/quad chunks; intensity's
     knife-edge zeroing before the layout and its position slots after it.
     Then the main_data pack (kernel K2) and the packed output
@@ -88,7 +88,6 @@ LSF_L3_BITRATES = tuple(int(b) for b in BITRATE_TABLE_V2 if b)
 # LINBITS_Q_TARGET and K_DEMAND, held equal by the tests.
 LINBITS_Q_TARGET = 2048.0
 K_DEMAND = 10
-PART23_MAX_BITS = 4095  # part2_3_length is a 12-bit field
 
 _CARRY_SPEC = {
     # name: (per-stream shape given (channels, reservoir_depth), dtype)
@@ -174,35 +173,6 @@ def init_carry(
     return carry
 
 
-def demand_budget_bits(
-    demand: torch.Tensor, total: torch.Tensor, equal: torch.Tensor
-) -> torch.Tensor:
-    """The donation law of demand_budget (pipeline.py:804-827): a frame's
-    granules whose demand sits under the equal share donate their surplus,
-    and granules over it split the donations by deficit, each budget capped
-    at the 12-bit part2_3_length. An exact no-op on frames without both a
-    surplus and a deficit. demand: [B, G] int32 priced bits at K_DEMAND;
-    total: [B] the frame's bits (slot + usable reservoir); equal: [B] the
-    equal split the frame keeps when no granule has demand. Returns the
-    per-granule budgets [B, G] int32."""
-    n_gran = demand.shape[-1]
-    i32 = torch.int32
-    share = (total // n_gran)[:, None]
-    surplus = torch.clamp(share - demand, min=0)
-    deficit = torch.clamp(demand - share, min=0)
-    pool = torch.sum(surplus, dim=-1, keepdim=True, dtype=i32)
-    need = torch.sum(deficit, dim=-1, keepdim=True, dtype=i32)
-    take = torch.minimum(pool, need)
-    prop = (
-        share
-        - (surplus * take) // torch.clamp(pool, min=1)
-        + (take * deficit) // torch.clamp(need, min=1)
-    )
-    prop = torch.clamp(prop, max=PART23_MAX_BITS)
-    has_demand = torch.sum(demand, dim=-1, keepdim=True, dtype=i32) > 0
-    return torch.where(has_demand, prop, equal[:, None]).to(i32)
-
-
 def lowpass_stage(
     spectra: torch.Tensor, block: torch.Tensor, cut_sb: int, adaptive: bool
 ) -> torch.Tensor:
@@ -228,16 +198,6 @@ def demand_vbr_candidates(options: MP3EncoderOptions) -> tuple[list, list]:
     cands = [b for b in table if low <= b <= top]
     slots_per_kbps, side, crc = frame_geometry(options)
     return cands, [((slots_per_kbps * b * 1000) // sr - 4 - crc - side) * 8 for b in cands]
-
-
-def demand_vbr_bitrate(
-    demand: torch.Tensor, slot_bits: torch.Tensor, cands: torch.Tensor
-) -> torch.Tensor:
-    """Each frame's demand-VBR bitrate: the smallest candidate whose slot
-    covers the frame's priced demand [B], the band's top when none does."""
-    fits = demand[:, None] <= slot_bits
-    first = torch.argmax(fits.to(torch.int32), dim=1)
-    return torch.where(torch.any(fits, dim=1), cands[first], cands[-1])
 
 
 def main_data_cap(options: MP3EncoderOptions) -> int:
@@ -391,6 +351,39 @@ def distortion_pass(
     return sfd, g0
 
 
+def rate_loop_config(options: MP3EncoderOptions) -> kernels.RateLoopConfig:
+    """What the chunk program's scans over T (kernels.rate_loop_scan and
+    placement_scan) read of the options."""
+    slots_per_kbps, side_size, crc_size = frame_geometry(options)
+    cbr_index, cbr_value = frame_bitrate(options, options.bitrate_kbps)
+    rate_law, cands, cand_slot_bits = "cbr", (), ()
+    if options.vbr and options.vbr_demand:
+        rate_law = "demand"
+        cands, cand_slot_bits = (tuple(x) for x in demand_vbr_candidates(options))
+    elif options.vbr:
+        rate_law = "energy"
+    return kernels.RateLoopConfig(
+        n_gran=options.n_granules * options.channels,
+        sample_rate=options.sample_rate,
+        lsf=bool(options.lsf),
+        slots_per_kbps=slots_per_kbps,
+        side_size=side_size,
+        crc_size=crc_size,
+        res_cap=options.reservoir_cap,
+        rate_law=rate_law,
+        cbr_index=cbr_index,
+        cbr_value=cbr_value,
+        base_kbps=options.bitrate_kbps,
+        quality=options.quality,
+        cands=cands,
+        cand_slot_bits=cand_slot_bits,
+        aligned=options.reservoir_mode == "aligned",
+        deep=options.reservoir_depth > 1,
+        linbits=options.linbits_tables,
+        demand_budget=options.spec_strict_entropy and options.demand_budget,
+    )
+
+
 def make_chunk_fn(options: MP3EncoderOptions):
     """Build the chunk encode function
     (carry, pcm [B,T,spf*ch], final [B,T], valid [B,T], la=None) ->
@@ -408,15 +401,11 @@ def make_chunk_fn(options: MP3EncoderOptions):
     lsf = bool(options.lsf)
     n_gr = options.n_granules  # 1 at LSF rates
     spf = options.samples_per_frame  # 1152, or 576 at LSF rates
-    res_cap = options.reservoir_cap  # 511, or 255 at LSF rates
     n_gran = n_gr * ch
     slots_per_kbps, side_size, crc_size = frame_geometry(options)
-    is_vbr = options.vbr
     base_kbps = options.bitrate_kbps
-    quality = options.quality
-    cbr_index, cbr_value = frame_bitrate(options, base_kbps)
     cap_bytes = main_data_cap(options)
-    aligned = options.reservoir_mode == "aligned"
+    loop_cfg = rate_loop_config(options)
     iso_quant = options.iso_quantization
     strict = options.spec_strict_entropy
     iso_short = options.iso_short_blocks
@@ -424,19 +413,16 @@ def make_chunk_fn(options: MP3EncoderOptions):
     mode_ext = mode_bits(options.mode.value)[1]
     win_seq = options.window_sequencing
     linbits = options.linbits_tables
-    demand_budget = strict and options.demand_budget
-    vbr_demand = is_vbr and options.vbr_demand
-    deep = options.reservoir_depth > 1
+    demand_budget = loop_cfg.demand_budget
+    vbr_demand = loop_cfg.rate_law == "demand"
     cut_sb = lowpass_cut(options)
     intensity = options.intensity_stereo_active and ch == 2
     # distortion control's probe budget: the static equal share of the base
     # rate's main data per granule (pipeline.py:614-622)
     base_main = (slots_per_kbps * base_kbps * 1000) // sr - 4 - crc_size - side_size
-    probe_budget = min((base_main * 8) // n_gran, PART23_MAX_BITS)
+    probe_budget = min((base_main * 8) // n_gran, dsp.PART23_MAX_BITS)
     i32 = torch.int32
-    if vbr_demand:
-        cands, cand_slot_bits = demand_vbr_candidates(options)
-        demand_k = min(quality, 19)  # the quality-mapped candidate gain
+    demand_k = min(options.quality, 19)  # demand VBR's quality-mapped candidate gain
 
     def sequence(carry, pcm_bt, left, right, la, final, valid):
         """The ISO window sequence from the raw pre-matrix PCM, shared
@@ -652,51 +638,22 @@ def make_chunk_fn(options: MP3EncoderOptions):
             y = x.reshape(T, B, n_gr, ch, *x.shape[3:])
             return y.permute(1, 3, 0, 2, *range(4, y.dim()))
 
-        if is_vbr:
-            frame_e = dsp.mean_square(pcm).transpose(0, 1)  # [T, B]
-        granule_e = tm(dsp.mean_square(granule_pcm))  # [T, B, G]
-        final_t = final.transpose(0, 1)
-        valid_t = valid.transpose(0, 1)
-        bits_t = tm(pre["bits"])
-        evaluated_t = tm(pre["evaluated"])
-        k_budget_t = tm(pre["k_budget"])
+        frame_e = demand_t = frame_demand_t = None
+        if loop_cfg.rate_law == "energy":
+            frame_e = dsp.mean_square(pcm).transpose(0, 1).contiguous()  # [T, B]
+        granule_e = tm(dsp.mean_square(granule_pcm)).contiguous()  # [T, B, G]
+        final_t = final.transpose(0, 1).contiguous()
+        valid_t = valid.transpose(0, 1).contiguous()
+        bits_t = tm(pre["bits"]).contiguous()
+        evaluated_t = tm(pre["evaluated"]).contiguous()
+        k_budget_t = tm(pre["k_budget"]).contiguous()
         if demand_budget:
-            demand_t = tm(demand_bits[..., K_DEMAND])  # [T, B, G]
+            demand_t = tm(demand_bits[..., K_DEMAND]).contiguous()  # [T, B, G]
         if vbr_demand:
             frame_demand_t = torch.sum(tm(demand_bits[..., demand_k]), dim=-1, dtype=i32)  # [T, B]
-            slots_c = torch.tensor(cand_slot_bits, dtype=i32, device=dev)
-            cands_c = torch.tensor(cands, dtype=i32, device=dev)
         del demand_bits
 
-        def keep(new, old, val):  # invalid frames freeze the carry
-            return {
-                k: torch.where(val.reshape((B,) + (1,) * (v.dim() - 1)), v, old[k])
-                for k, v in new.items()
-            }
-
-        def gap_of(c):
-            """Buffered slot bytes past the stream mirror (aligned reservoir
-            only: the compat law never reads it)."""
-            if not aligned:
-                return None
-            return torch.sum(c["slot_fifo"], dim=1, dtype=i32) - c["stream_len"]
-
-        def placement(c, gap, hb, fin):
-            """main_data_begin and the stream-length mirror after a frame of
-            hb bytes (the aligned reservoir: tail-aligned at depth 1,
-            front-aligned on the whole gap at depth > 1)."""
-            if aligned:
-                if deep:
-                    mdb = torch.clamp(gap, 0, res_cap)
-                else:
-                    mdb = torch.clamp(torch.minimum(gap, hb), 0, res_cap)
-                sl = c["stream_len"] + (gap - mdb) + hb - c["slot_fifo"][:, 0]
-            else:
-                mdb = torch.where(fin, 0, torch.clamp(c["stream_len"], max=res_cap))
-                sl = c["stream_len"] + hb - c["slot_fifo"][:, 0]
-            return mdb, torch.clamp(sl, min=0)
-
-        # ---------------- Phase 2: integer loop over T ----------------
+        # ---------------- Phase 2: integer scan over T (K4) ----------------
         with annotate("chunk.loop_t"):
             c = {
                 k: carry[k]
@@ -704,69 +661,11 @@ def make_chunk_fn(options: MP3EncoderOptions):
             }
             if strict:
                 # the selection runs in the priced world; the real stream_len and
-                # mdb come from the second loop below on the actual bits
+                # mdb come from the second scan below on the actual bits
                 c["stream_len"] = carry["est_stream_len"]
-            if not is_vbr:
-                br_idx_c = torch.full((B,), cbr_index, dtype=i32, device=dev)
-                br_val_c = torch.full((B,), cbr_value, dtype=i32, device=dev)
-            ys = []
-            for t in range(T):
-                fin = final_t[t]
-                val = valid_t[t]
-                if vbr_demand:
-                    target = demand_vbr_bitrate(frame_demand_t[t], slots_c, cands_c)
-                    br_idx = dsp.bitrate_index_device(target, sr)
-                    br_val = dsp.bitrate_value_device(br_idx, lsf=lsf)
-                elif is_vbr:
-                    target = dsp.vbr_choose_bitrate(
-                        frame_e[t], c["vbr_ehist"], c["vbr_count"], base_kbps, quality
-                    )
-                    br_idx = dsp.bitrate_index_device(target, sr)
-                    br_val = dsp.bitrate_value_device(br_idx, lsf=lsf)
-                else:
-                    br_idx, br_val = br_idx_c, br_val_c
-
-                numerator = slots_per_kbps * br_val * 1000
-                base_size = numerator // sr
-                pad_acc = c["pad_rem"] + numerator % sr
-                padding = (pad_acc >= sr).to(i32)
-                pad_rem = pad_acc - padding * sr
-                slot = base_size + padding - 4 - crc_size - side_size
-
-                gap = gap_of(c)
-                res_bits = torch.where(fin, 0, c["avail"] * 8)
-                usable = (res_bits * 9) // 10
-                if aligned:
-                    # the depth-general expressibility cap: a frame's data lands
-                    # only in still-buffered slots, within main_data_begin's reach
-                    usable = torch.minimum(usable, torch.clamp(gap, 0, res_cap) * 8)
-                total_bits = slot * 8 + usable
-                bits_per_granule = total_bits // n_gran
-                if linbits:
-                    # ESC coding can reach the 12-bit part2_3_length field
-                    bits_per_granule = torch.clamp(bits_per_granule, max=PART23_MAX_BITS)
-                if demand_budget:
-                    max_bits = demand_budget_bits(demand_t[t], total_bits, bits_per_granule)
-                else:
-                    max_bits = bits_per_granule[:, None]
-
-                k_sel, has_fit, bits_sel = dsp.rate_loop_select(
-                    bits_t[t], evaluated_t[t], k_budget_t[t], max_bits
-                )
-                huffman_bytes = (torch.sum(bits_sel, dim=-1, dtype=i32) + 7) // 8
-                mdb, stream_len = placement(c, gap, huffman_bytes, fin)
-                new_c = {
-                    "stream_len": stream_len,
-                    "avail": torch.clamp(c["avail"] + slot - huffman_bytes, 0, res_cap),
-                    "pad_rem": pad_rem,
-                    "slot_fifo": torch.cat([c["slot_fifo"][:, 1:], slot[:, None]], dim=1),
-                    "vbr_ehist": torch.cat([c["vbr_ehist"][:, n_gran:], granule_e[t]], dim=1),
-                    "vbr_count": torch.clamp(c["vbr_count"] + n_gran, max=10),
-                }
-                c = keep(new_c, c, val)
-                ys.append((br_idx, padding, mdb, slot, k_sel, has_fit, bits_sel))
-            br_idx, padding, mdb, slot, k_sel, has_fit, bits_sel = (
-                torch.stack(y) for y in zip(*ys)
+            c, (br_idx, padding, mdb, slot, k_sel, has_fit, bits_sel) = kernels.rate_loop_scan(
+                loop_cfg, c, bits_t, evaluated_t, k_budget_t, granule_e, final_t, valid_t,
+                frame_e=frame_e, demand=demand_t, frame_demand=frame_demand_t,
             )
 
         # ---------------- Phase 3: parallel finalize (batch-major) --------
@@ -789,19 +688,11 @@ def make_chunk_fn(options: MP3EncoderOptions):
                 part23 = tm(lay["bits"] + (part2 if part2 is not None else 0))
                 hb_t = (torch.sum(part23, dim=-1, dtype=i32) + 7) // 8
                 with annotate("chunk.loop_t"):
-                    c2 = {"stream_len": carry["stream_len"], "slot_fifo": carry["slot_fifo"]}
-                    mdbs = []
-                    for t in range(T):
-                        mdb_t, sl = placement(c2, gap_of(c2), hb_t[t], final_t[t])
-                        new_c2 = {
-                            "stream_len": sl,
-                            "slot_fifo": torch.cat(
-                                [c2["slot_fifo"][:, 1:], slot[t][:, None]], dim=1
-                            ),
-                        }
-                        c2 = keep(new_c2, c2, valid_t[t])
-                        mdbs.append(mdb_t)
-                    mdb = torch.stack(mdbs)
+                    c2, mdb = kernels.placement_scan(
+                        loop_cfg,
+                        {"stream_len": carry["stream_len"], "slot_fifo": carry["slot_fifo"]},
+                        hb_t, slot, final_t, valid_t,
+                    )
                 new_carry["est_stream_len"] = c["stream_len"]
                 new_carry["stream_len"] = c2["stream_len"]
                 big_values_b = lay["bv"]

@@ -66,6 +66,7 @@ ONSET_RATIO = 4.0
 OFFSET_RATIO = 4.5
 
 N_GAIN_CANDIDATES = kernels.N_GAIN_CANDIDATES
+PART23_MAX_BITS = 4095  # part2_3_length is a 12-bit field
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -630,13 +631,57 @@ def vbr_choose_bitrate(
         have, torch.sum(ehist, dim=-1) / torch.clamp(ecount, min=1).to(_F32), energy
     )
     ratio = torch.clamp(energy / torch.clamp(avg, min=1e-4), 0.5, 2.0)
-    quality_factor = np.float32(9 - quality) / np.float32(9.0)
-    max_adjustment = int(np.float32(32.0) + np.float32(32.0) * quality_factor)
+    max_adjustment, min_bitrate, max_bitrate = vbr_law(base, quality)
     adjustment = torch.trunc((ratio - 1.0) * float(max_adjustment)).to(_I32)
-    min_bitrate = max(32, base - 64 + quality * 8)
-    max_bitrate = min(320, base + 64 - quality * 4)
     # max-of-min, not clip: the reference's max() wins when min > max
     return torch.clamp(torch.clamp(base + adjustment, max=max_bitrate), min=min_bitrate)
+
+
+def vbr_law(base: int, quality: int) -> tuple[int, int, int]:
+    """The energy VBR law's constants at base kbps and quality: (the largest
+    adjustment in kbps, the lowest and the highest bitrate)."""
+    quality_factor = np.float32(9 - quality) / np.float32(9.0)
+    max_adjustment = int(np.float32(32.0) + np.float32(32.0) * quality_factor)
+    return max_adjustment, max(32, base - 64 + quality * 8), min(320, base + 64 - quality * 4)
+
+
+def demand_vbr_bitrate(
+    demand: torch.Tensor, slot_bits: torch.Tensor, cands: torch.Tensor
+) -> torch.Tensor:
+    """Each frame's demand-VBR bitrate: the smallest candidate whose slot
+    covers the frame's priced demand [B], the band's top when none does."""
+    fits = demand[:, None] <= slot_bits
+    first = torch.argmax(fits.to(torch.int32), dim=1)
+    return torch.where(torch.any(fits, dim=1), cands[first], cands[-1])
+
+
+def demand_budget_bits(
+    demand: torch.Tensor, total: torch.Tensor, equal: torch.Tensor
+) -> torch.Tensor:
+    """The donation law of demand_budget (pipeline.py:804-827): a frame's
+    granules whose demand sits under the equal share donate their surplus,
+    and granules over it split the donations by deficit, each budget capped
+    at the 12-bit part2_3_length. An exact no-op on frames without both a
+    surplus and a deficit. demand: [B, G] int32 priced bits at K_DEMAND;
+    total: [B] the frame's bits (slot + usable reservoir); equal: [B] the
+    equal split the frame keeps when no granule has demand. Returns the
+    per-granule budgets [B, G] int32."""
+    n_gran = demand.shape[-1]
+    i32 = torch.int32
+    share = (total // n_gran)[:, None]
+    surplus = torch.clamp(share - demand, min=0)
+    deficit = torch.clamp(demand - share, min=0)
+    pool = torch.sum(surplus, dim=-1, keepdim=True, dtype=i32)
+    need = torch.sum(deficit, dim=-1, keepdim=True, dtype=i32)
+    take = torch.minimum(pool, need)
+    prop = (
+        share
+        - (surplus * take) // torch.clamp(pool, min=1)
+        + (take * deficit) // torch.clamp(need, min=1)
+    )
+    prop = torch.clamp(prop, max=PART23_MAX_BITS)
+    has_demand = torch.sum(demand, dim=-1, keepdim=True, dtype=i32) > 0
+    return torch.where(has_demand, prop, equal[:, None]).to(i32)
 
 
 def bitrate_index_device(bitrate: torch.Tensor, sample_rate: int) -> torch.Tensor:

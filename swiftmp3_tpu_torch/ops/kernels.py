@@ -5,6 +5,11 @@ PyTorch versions: one for each Pallas kernel of the reference.
     pack        <- swiftmp3_tpu/ops/pallas_kernels.py:pack_pallas            (K2)
     polyphase   <- swiftmp3_tpu/ops/pallas_kernels.py:polyphase_chunk_pallas (K3)
 
+and one with no Pallas kernel behind it: the chunk program's integer scans
+over T (the reference's Phase 2 `lax.scan`, swiftmp3_tpu/models/pipeline.py),
+`rate_loop_scan` and strict's second loop `placement_scan`, two entry points
+of one source (K4).
+
 Dispatch is by the device of the input tensor, with no fallback: a CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or raises
 (a failed build, a refused launch and a nonzero `cudaGetLastError()` all
@@ -17,9 +22,10 @@ lookup in `sweep_cost_table`; K2 is a persistent grid of warps
 (`pack_plan`), each packing whole frames from a ring of slot tiles, the
 nbits staged by TMA bulk copies and only the live slots' chunks by cp.async;
 K3 register-tiles its cosine product and walks
-`polyphase_plan`'s tiles with asynchronous staging. What the launches need
-beyond pointers (the cost table, the grids, the dynamic shared-memory sizes)
-is computed here, where the CPU tests reach it.
+`polyphase_plan`'s tiles with asynchronous staging; K4 walks each stream's
+frames with one warp, its state in registers. What the launches need beyond
+pointers (the cost table, the grids, the dynamic shared-memory sizes, K4's
+parameter block) is computed here, where the CPU tests reach it.
 
 Build: `nvcc` (sm_90a) compiles each `csrc/*.cu` into a shared library with
 a plain C interface under `swiftmp3_tpu_torch/_build/` at the first CUDA
@@ -30,6 +36,7 @@ loaded with ctypes. Nothing is built or imported at module import.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os
 import shutil
@@ -41,19 +48,27 @@ import torch
 N_GAIN_CANDIDATES = 20  # the reference's maxIterations
 _PAIRS = 288
 
-LAUNCHES = {"rate_sweep": 0, "pack": 0, "polyphase": 0}
+LAUNCHES = {"rate_sweep": 0, "pack": 0, "polyphase": 0, "rate_loop_scan": 0, "placement_scan": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = {"rate_sweep": "rate_sweep.cu", "pack": "pack.cu", "polyphase": "polyphase.cu"}
+# library -> source; each library's C entry points are swm_<name> for the
+# names that ENTRY_LIBRARY maps to it
+SOURCES = {
+    "rate_sweep": "rate_sweep.cu", "pack": "pack.cu", "polyphase": "polyphase.cu",
+    "rate_loop_scan": "rate_loop_scan.cu",
+}
+ENTRY_LIBRARY = {name: name for name in SOURCES} | {"placement_scan": "rate_loop_scan"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 EXTRA_NVCC_FLAGS = {
-    # no FMA contraction: K1's quantizer rounds mag*inv, then +0.5, then floors
+    # no FMA contraction: K1's quantizer rounds mag*inv, then +0.5, then
+    # floors; K4's energy law subtracts, then multiplies
     "rate_sweep": ["--fmad=false"],
+    "rate_loop_scan": ["--fmad=false"],
 }
 
 _vp = ctypes.c_void_p
@@ -64,6 +79,9 @@ _SIGNATURES = {
     "pack": [_vp, _vp, _vp, _vp] + [ctypes.c_int] * 5 + [_vp],
     # (hist, pcm, wrev, mrev_t, S, n_rows, n_pcm, tiles_per_block, smem_bytes, stream)
     "polyphase": [_vp, _vp, _vp, _vp, _vp] + [ctypes.c_longlong] * 4 + [_vp],
+    # (&SwmScanParams, &SwmScanIo, stream); (&SwmScanParams, &SwmPlacementIo, stream)
+    "rate_loop_scan": [_vp, _vp, _vp],
+    "placement_scan": [_vp, _vp, _vp],
 }
 
 _build_lock = threading.Lock()
@@ -123,9 +141,11 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
         libs = {}
         for name in SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
-            fn = getattr(lib, f"swm_{name}")
-            fn.argtypes = _SIGNATURES[name]
-            fn.restype = ctypes.c_int
+            for entry, library in ENTRY_LIBRARY.items():
+                if library == name:
+                    fn = getattr(lib, f"swm_{entry}")
+                    fn.argtypes = _SIGNATURES[entry]
+                    fn.restype = ctypes.c_int
             lib.swm_error_string.argtypes = [ctypes.c_int]
             lib.swm_error_string.restype = ctypes.c_char_p
             libs[name] = lib
@@ -139,7 +159,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
     launch, and opt their kernels in, on the device `cudaGetDevice` names,
     which must be the tensors' card and not whichever card the caller left
     current); raise on a nonzero CUDA error code."""
-    lib = _libs.get(name) or build_kernels()[name]
+    library = ENTRY_LIBRARY[name]
+    lib = _libs.get(library) or build_kernels()[library]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, f"swm_{name}")(*args, stream)
@@ -455,3 +476,385 @@ def polyphase_chunk(
     (S [..., n/32, 32], x = hist | pcm [..., 480 + n]). The kernel computes
     S; x is concatenated outside it, as the plain version does."""
     return polyphase_subbands(hist, pcm), torch.cat([hist, pcm], dim=-1)
+
+
+# --- K4: the rate loop's scans over T --------------------------------------------
+
+# The kernel's limits (csrc/rate_loop_scan.cu): granules a frame, reservoir
+# depth, demand-VBR candidates, bitrate-table entries, the energy history
+K4_MAX_GRANULES = 4
+K4_MAX_DEPTH = 8
+K4_MAX_CANDS = 16
+K4_HISTORY = 10
+RATE_LAWS = {"cbr": 0, "energy": 1, "demand": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class RateLoopConfig:
+    """What the scans over T read of the options
+    (`models.pipeline.rate_loop_config` makes it): the frame geometry
+    (granules, sample rate, slots a kbps, side-info and CRC bytes, the
+    reservoir's reach), the rate law ("cbr", "energy" or "demand") with the
+    CBR frame's header index and kbps, the energy law's base and quality,
+    demand VBR's candidate kbps and their slots in bits, and the reservoir
+    (aligned, deeper than one frame), linbits and demand-budget switches."""
+
+    n_gran: int
+    sample_rate: int
+    lsf: bool
+    slots_per_kbps: int
+    side_size: int
+    crc_size: int
+    res_cap: int
+    rate_law: str
+    cbr_index: int
+    cbr_value: int
+    base_kbps: int
+    quality: int
+    cands: tuple = ()
+    cand_slot_bits: tuple = ()
+    aligned: bool = False
+    deep: bool = False
+    linbits: bool = False
+    demand_budget: bool = False
+
+
+class _ScanParams(ctypes.Structure):
+    """csrc/rate_loop_scan.cu's SwmScanParams, field for field."""
+
+    _fields_ = [
+        (name, ctypes.c_int)
+        for name in (
+            "B", "T", "G", "K", "sample_rate", "slots_per_kbps", "side_size", "crc_size",
+            "res_cap", "rate_law", "aligned", "deep", "linbits", "demand_budget", "cbr_index",
+            "cbr_value", "base_kbps", "min_bitrate", "max_bitrate", "max_adjustment", "n_cands",
+        )
+    ] + [(name, ctypes.c_int * K4_MAX_CANDS) for name in ("bitrates", "cands", "cand_slot_bits")]
+
+
+def _pointers(name: str, fields: tuple) -> type:
+    return type(name, (ctypes.Structure,), {"_fields_": [(f, ctypes.c_void_p) for f in fields]})
+
+
+_SCAN_CARRY = ("stream_len", "avail", "pad_rem", "slot_fifo", "vbr_ehist", "vbr_count")
+_SCAN_IN = ("bits", "evaluated", "k_budget", "granule_e", "final", "valid", "frame_e", "demand",
+            "frame_demand")
+_SCAN_OUT = ("br_idx", "padding", "mdb", "slot", "k_sel", "has_fit", "bits_sel")
+_PLACEMENT_CARRY = ("stream_len", "slot_fifo")
+_PLACEMENT_IN = ("hb", "slot", "final", "valid")
+# csrc/rate_loop_scan.cu's SwmScanIo and SwmPlacementIo, field for field
+_ScanIo = _pointers(
+    "_ScanIo",
+    _SCAN_IN + tuple(f"{k}_in" for k in _SCAN_CARRY) + _SCAN_OUT
+    + tuple(f"{k}_out" for k in _SCAN_CARRY),
+)
+_PlacementIo = _pointers(
+    "_PlacementIo",
+    _PLACEMENT_IN + tuple(f"{k}_in" for k in _PLACEMENT_CARRY) + ("mdb",)
+    + tuple(f"{k}_out" for k in _PLACEMENT_CARRY),
+)
+
+
+def scan_params(cfg: RateLoopConfig, B: int, T: int, K: int) -> _ScanParams:
+    """K4's parameter block for B streams of T frames at reservoir depth K:
+    the config's numbers, the energy law's constants (dsp.vbr_law) and the
+    bitrate table of the config's MPEG version."""
+    from .dsp import BITRATE_VALUES, BITRATE_VALUES_V2, vbr_law
+
+    if T < 1:
+        raise ValueError(f"rate loop scan: {T} frames; a scan takes at least one")
+    if not 1 <= cfg.n_gran <= K4_MAX_GRANULES:
+        raise ValueError(f"rate loop scan: {cfg.n_gran} granules a frame pass {K4_MAX_GRANULES}")
+    if not 1 <= K <= K4_MAX_DEPTH:
+        raise ValueError(f"rate loop scan: reservoir depth {K} outside 1..{K4_MAX_DEPTH}")
+    if len(cfg.cands) > K4_MAX_CANDS or len(cfg.cand_slot_bits) != len(cfg.cands):
+        raise ValueError(
+            f"rate loop scan: {len(cfg.cands)} demand candidates (at most {K4_MAX_CANDS})"
+        )
+    if cfg.rate_law == "demand" and not cfg.cands:
+        raise ValueError("rate loop scan: demand VBR needs its candidates")
+    max_adjustment, min_bitrate, max_bitrate = vbr_law(cfg.base_kbps, cfg.quality)
+    table = BITRATE_VALUES_V2 if cfg.lsf else BITRATE_VALUES
+    return _ScanParams(
+        B=B, T=T, G=cfg.n_gran, K=K, sample_rate=cfg.sample_rate,
+        slots_per_kbps=cfg.slots_per_kbps, side_size=cfg.side_size, crc_size=cfg.crc_size,
+        res_cap=cfg.res_cap, rate_law=RATE_LAWS[cfg.rate_law], aligned=cfg.aligned,
+        deep=cfg.deep, linbits=cfg.linbits, demand_budget=cfg.demand_budget,
+        cbr_index=cfg.cbr_index, cbr_value=cfg.cbr_value, base_kbps=cfg.base_kbps,
+        min_bitrate=min_bitrate, max_bitrate=max_bitrate, max_adjustment=max_adjustment,
+        n_cands=len(cfg.cands), bitrates=(ctypes.c_int * K4_MAX_CANDS)(*table.tolist()),
+        cands=(ctypes.c_int * K4_MAX_CANDS)(*cfg.cands),
+        cand_slot_bits=(ctypes.c_int * K4_MAX_CANDS)(*cfg.cand_slot_bits),
+    )
+
+
+def _keep(new: dict, old: dict, val: torch.Tensor) -> dict:  # invalid frames freeze the carry
+    B = val.shape[0]
+    return {
+        k: torch.where(val.reshape((B,) + (1,) * (v.dim() - 1)), v, old[k])
+        for k, v in new.items()
+    }
+
+
+def _gap_of(cfg: RateLoopConfig, c: dict):
+    """Buffered slot bytes past the stream mirror (aligned reservoir only:
+    the compat law never reads it)."""
+    if not cfg.aligned:
+        return None
+    return torch.sum(c["slot_fifo"], dim=1, dtype=torch.int32) - c["stream_len"]
+
+
+def _placement(cfg: RateLoopConfig, c: dict, gap, hb, fin):
+    """main_data_begin and the stream-length mirror after a frame of hb
+    bytes (the aligned reservoir: tail-aligned at depth 1, front-aligned on
+    the whole gap at depth > 1)."""
+    res_cap = cfg.res_cap
+    if cfg.aligned:
+        if cfg.deep:
+            mdb = torch.clamp(gap, 0, res_cap)
+        else:
+            mdb = torch.clamp(torch.minimum(gap, hb), 0, res_cap)
+        sl = c["stream_len"] + (gap - mdb) + hb - c["slot_fifo"][:, 0]
+    else:
+        mdb = torch.where(fin, 0, torch.clamp(c["stream_len"], max=res_cap))
+        sl = c["stream_len"] + hb - c["slot_fifo"][:, 0]
+    return mdb, torch.clamp(sl, min=0)
+
+
+def rate_loop_scan_plain(
+    cfg: RateLoopConfig, carry: dict, bits, evaluated, k_budget, granule_e, final, valid,
+    frame_e=None, demand=None, frame_demand=None,
+) -> tuple[dict, tuple]:
+    """Plain version of K4's selection scan: the chunk program's integer loop
+    over T, one step of [B] ops a frame (pipeline.py, "Phase 2")."""
+    from .dsp import (
+        PART23_MAX_BITS,
+        bitrate_index_device,
+        bitrate_value_device,
+        demand_budget_bits,
+        demand_vbr_bitrate,
+        rate_loop_select,
+        vbr_choose_bitrate,
+    )
+
+    i32 = torch.int32
+    T, B = valid.shape
+    dev = valid.device
+    sr, n_gran, lsf = cfg.sample_rate, cfg.n_gran, cfg.lsf
+    res_cap = cfg.res_cap
+    c = dict(carry)
+    if cfg.rate_law == "cbr":
+        br_idx_c = torch.full((B,), cfg.cbr_index, dtype=i32, device=dev)
+        br_val_c = torch.full((B,), cfg.cbr_value, dtype=i32, device=dev)
+    if cfg.rate_law == "demand":
+        slots_c = torch.tensor(cfg.cand_slot_bits, dtype=i32, device=dev)
+        cands_c = torch.tensor(cfg.cands, dtype=i32, device=dev)
+    ys = []
+    for t in range(T):
+        fin = final[t]
+        val = valid[t]
+        if cfg.rate_law == "demand":
+            target = demand_vbr_bitrate(frame_demand[t], slots_c, cands_c)
+            br_idx = bitrate_index_device(target, sr)
+            br_val = bitrate_value_device(br_idx, lsf=lsf)
+        elif cfg.rate_law == "energy":
+            target = vbr_choose_bitrate(
+                frame_e[t], c["vbr_ehist"], c["vbr_count"], cfg.base_kbps, cfg.quality
+            )
+            br_idx = bitrate_index_device(target, sr)
+            br_val = bitrate_value_device(br_idx, lsf=lsf)
+        else:
+            br_idx, br_val = br_idx_c, br_val_c
+
+        numerator = cfg.slots_per_kbps * br_val * 1000
+        base_size = numerator // sr
+        pad_acc = c["pad_rem"] + numerator % sr
+        padding = (pad_acc >= sr).to(i32)
+        pad_rem = pad_acc - padding * sr
+        slot = base_size + padding - 4 - cfg.crc_size - cfg.side_size
+
+        gap = _gap_of(cfg, c)
+        res_bits = torch.where(fin, 0, c["avail"] * 8)
+        usable = (res_bits * 9) // 10
+        if cfg.aligned:
+            # the depth-general expressibility cap: a frame's data lands
+            # only in still-buffered slots, within main_data_begin's reach
+            usable = torch.minimum(usable, torch.clamp(gap, 0, res_cap) * 8)
+        total_bits = slot * 8 + usable
+        bits_per_granule = total_bits // n_gran
+        if cfg.linbits:
+            # ESC coding can reach the 12-bit part2_3_length field
+            bits_per_granule = torch.clamp(bits_per_granule, max=PART23_MAX_BITS)
+        if cfg.demand_budget:
+            max_bits = demand_budget_bits(demand[t], total_bits, bits_per_granule)
+        else:
+            max_bits = bits_per_granule[:, None]
+
+        k_sel, has_fit, bits_sel = rate_loop_select(
+            bits[t], evaluated[t], k_budget[t], max_bits
+        )
+        huffman_bytes = (torch.sum(bits_sel, dim=-1, dtype=i32) + 7) // 8
+        mdb, stream_len = _placement(cfg, c, gap, huffman_bytes, fin)
+        new_c = {
+            "stream_len": stream_len,
+            "avail": torch.clamp(c["avail"] + slot - huffman_bytes, 0, res_cap),
+            "pad_rem": pad_rem,
+            "slot_fifo": torch.cat([c["slot_fifo"][:, 1:], slot[:, None]], dim=1),
+            "vbr_ehist": torch.cat([c["vbr_ehist"][:, n_gran:], granule_e[t]], dim=1),
+            "vbr_count": torch.clamp(c["vbr_count"] + n_gran, max=10),
+        }
+        c = _keep(new_c, c, val)
+        ys.append((br_idx, padding, mdb, slot, k_sel, has_fit, bits_sel))
+    return c, tuple(torch.stack(y) for y in zip(*ys))
+
+
+def placement_scan_plain(
+    cfg: RateLoopConfig, carry: dict, hb, slot, final, valid
+) -> tuple[dict, torch.Tensor]:
+    """Plain version of K4's placement scan: strict's second loop over T,
+    the reservoir mirror on the actual bytes of each frame."""
+    c2 = dict(carry)
+    mdbs = []
+    for t in range(valid.shape[0]):
+        mdb_t, sl = _placement(cfg, c2, _gap_of(cfg, c2), hb[t], final[t])
+        new_c2 = {
+            "stream_len": sl,
+            "slot_fifo": torch.cat([c2["slot_fifo"][:, 1:], slot[t][:, None]], dim=1),
+        }
+        c2 = _keep(new_c2, c2, valid[t])
+        mdbs.append(mdb_t)
+    return c2, torch.stack(mdbs)
+
+
+def _require_one_device(tensors: dict) -> torch.device:
+    """The device all of `tensors` lie on, a CPU or a CUDA one; raises when
+    they mix devices or lie elsewhere."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != dev or dev.type not in ("cpu", "cuda"):
+            raise ValueError(
+                f"{name}: on {t.device}; the scan's tensors share one CPU or CUDA device"
+            )
+    return dev
+
+
+def _check_scan_tensors(specs: dict, tensors: dict) -> None:
+    """Each tensor's dtype and shape, and (on a card) its contiguity."""
+    for name, (dtype, shape) in specs.items():
+        t = tensors[name]
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+        if t.device.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+
+
+def _carry_specs(names: tuple, B: int, K: int) -> dict:
+    shapes = {"slot_fifo": (B, K), "vbr_ehist": (B, K4_HISTORY)}
+    return {
+        n: (torch.float32 if n == "vbr_ehist" else torch.int32, shapes.get(n, (B,))) for n in names
+    }
+
+
+def rate_loop_scan(
+    cfg: RateLoopConfig, carry: dict, bits, evaluated, k_budget, granule_e, final, valid,
+    frame_e=None, demand=None, frame_demand=None,
+) -> tuple[dict, tuple]:
+    """The selection scan over T of B streams (K4's first entry point): each
+    frame's bitrate, padding and slot, reservoir budget, the candidate of
+    each granule and the reservoir mirror, the carry frozen on invalid
+    frames.
+
+    carry: {stream_len (strict: the priced mirror), avail, pad_rem [B],
+    slot_fifo [B, K] int32, vbr_ehist [B, 10] float32, vbr_count [B]
+    int32}; bits [T, B, G, 20] int32, evaluated [T, B, G, 20] bool,
+    k_budget [T, B, G] int32, granule_e [T, B, G] float32, final and valid
+    [T, B] bool; frame_e [T, B] float32 under the energy law, demand
+    [T, B, G] int32 under demand_budget, frame_demand [T, B] int32 under
+    demand VBR (None otherwise). Returns (the carry, (br_idx, padding, mdb,
+    slot [T, B] int32, k_sel [T, B, G] int32, has_fit [T, B, G] bool,
+    bits_sel [T, B, G] int32))."""
+    T, B = valid.shape
+    G = cfg.n_gran
+    K = carry["slot_fifo"].shape[-1]
+    optional = {
+        "frame_e": (frame_e, cfg.rate_law == "energy", torch.float32, (T, B)),
+        "demand": (demand, cfg.demand_budget, torch.int32, (T, B, G)),
+        "frame_demand": (frame_demand, cfg.rate_law == "demand", torch.int32, (T, B)),
+    }
+    tensors = {f"{k}_in": carry[k] for k in _SCAN_CARRY}
+    tensors.update(bits=bits, evaluated=evaluated, k_budget=k_budget, granule_e=granule_e,
+                   final=final, valid=valid)
+    specs = {f"{k}_in": v for k, v in _carry_specs(_SCAN_CARRY, B, K).items()}
+    specs.update(
+        bits=(torch.int32, (T, B, G, N_GAIN_CANDIDATES)),
+        evaluated=(torch.bool, (T, B, G, N_GAIN_CANDIDATES)),
+        k_budget=(torch.int32, (T, B, G)), granule_e=(torch.float32, (T, B, G)),
+        final=(torch.bool, (T, B)), valid=(torch.bool, (T, B)),
+    )
+    for name, (t, needed, dtype, shape) in optional.items():
+        if (t is not None) != needed:
+            raise ValueError(f"{name}: {'required' if needed else 'not read'} under this config")
+        if needed:
+            tensors[name], specs[name] = t, (dtype, shape)
+    dev = _require_one_device(tensors)
+    _check_scan_tensors(specs, tensors)
+    params = scan_params(cfg, B, T, K)
+    if _on_cpu(bits):
+        return rate_loop_scan_plain(
+            cfg, carry, bits, evaluated, k_budget, granule_e, final, valid,
+            frame_e=frame_e, demand=demand, frame_demand=frame_demand,
+        )
+    new = {k: torch.empty(shape, dtype=dtype, device=dev)
+           for k, (dtype, shape) in _carry_specs(_SCAN_CARRY, B, K).items()}
+    per_granule = {"k_sel": (T, B, G), "has_fit": (T, B, G), "bits_sel": (T, B, G)}
+    outs = tuple(
+        torch.empty(per_granule.get(n, (T, B)), dtype=torch.bool if n == "has_fit" else torch.int32,
+                    device=dev)
+        for n in _SCAN_OUT
+    )
+    io = _ScanIo(
+        **{k: (tensors[k].data_ptr() if k in tensors else None) for k in _SCAN_IN},
+        **{f"{k}_in": carry[k].data_ptr() for k in _SCAN_CARRY},
+        **{k: o.data_ptr() for k, o in zip(_SCAN_OUT, outs)},
+        **{f"{k}_out": new[k].data_ptr() for k in _SCAN_CARRY},
+    )
+    _launch("rate_loop_scan", dev, ctypes.addressof(params), ctypes.addressof(io))
+    LAUNCHES["rate_loop_scan"] += 1
+    return new, outs
+
+
+def placement_scan(
+    cfg: RateLoopConfig, carry: dict, hb, slot, final, valid
+) -> tuple[dict, torch.Tensor]:
+    """strict's second scan over T (K4's second entry point): each frame's
+    main_data_begin and the stream mirror on the actual bytes hb [T, B]
+    int32 of the frames whose slots slot [T, B] int32 the first scan chose,
+    the carry {stream_len [B], slot_fifo [B, K] int32} frozen on invalid
+    frames (final, valid [T, B] bool). Returns (the carry, mdb [T, B]
+    int32)."""
+    T, B = valid.shape
+    K = carry["slot_fifo"].shape[-1]
+    tensors = {f"{k}_in": carry[k] for k in _PLACEMENT_CARRY}
+    tensors.update(hb=hb, slot=slot, final=final, valid=valid)
+    specs = {f"{k}_in": v for k, v in _carry_specs(_PLACEMENT_CARRY, B, K).items()}
+    specs.update(hb=(torch.int32, (T, B)), slot=(torch.int32, (T, B)),
+                 final=(torch.bool, (T, B)), valid=(torch.bool, (T, B)))
+    dev = _require_one_device(tensors)
+    _check_scan_tensors(specs, tensors)
+    params = scan_params(cfg, B, T, K)
+    if _on_cpu(hb):
+        return placement_scan_plain(cfg, carry, hb, slot, final, valid)
+    new = {k: torch.empty(shape, dtype=dtype, device=dev)
+           for k, (dtype, shape) in _carry_specs(_PLACEMENT_CARRY, B, K).items()}
+    mdb = torch.empty((T, B), dtype=torch.int32, device=dev)
+    io = _PlacementIo(
+        **{k: tensors[k].data_ptr() for k in _PLACEMENT_IN},
+        **{f"{k}_in": carry[k].data_ptr() for k in _PLACEMENT_CARRY},
+        mdb=mdb.data_ptr(),
+        **{f"{k}_out": new[k].data_ptr() for k in _PLACEMENT_CARRY},
+    )
+    _launch("placement_scan", dev, ctypes.addressof(params), ctypes.addressof(io))
+    LAUNCHES["placement_scan"] += 1
+    return new, mdb

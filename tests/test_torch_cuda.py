@@ -9,7 +9,9 @@ against sessions on the card; K1, K2 and K3 on the LSF and free-format
 paths' inputs and odd LSF chunks, and LSF rows on the card with the CPU
 filterbank and MDCT against the JAX bytes; K1 and K2 on a card other than
 the current one (skips below two cards); the graft entry's step on the card
-(`graft_entry.entry()`) against the CPU's, and its dry run.
+(`graft_entry.entry()`) against the CPU's, and its dry run; K4's two scans
+over T against their plain versions in every configuration the chunk
+program runs them in, and the chunk program launching each once a chunk.
 
 Every test here needs a CUDA card and skips without one (the kernels have no
 CPU mode). The file imports nothing of JAX and nothing of the JAX package, so
@@ -30,6 +32,7 @@ from swiftmp3_tpu_torch.parallel.batch import encode_batch
 
 from .torch_inputs import (
     COMPAT_FIXTURES,
+    SCAN_OPTIONS,
     DC_IS_OPTIONS,
     HQ_FLAG_OPTIONS,
     HQ_OPTIONS,
@@ -37,11 +40,14 @@ from .torch_inputs import (
     STRICT_OPTIONS,
     dc_is_options,
     dc_is_streams,
+    energy_knife_edge_scan_input,
     fixture_path,
     hq_pack_input,
     knife_edge_sweep_input,
     make_signal,
     pack_input,
+    scan_input,
+    scan_options,
     strict_pack_input,
     sweep_input,
 )
@@ -88,6 +94,10 @@ HQ_CARD_FLIP_RATE = (24, 78)
 # the JAX package's K3 tolerance (tests/test_pallas.py)
 POLYPHASE_SHAPES = [(2, 8), (6, 3), (64, 32), (5, 5), (2, 29), (1024, 15)]
 K3_TOLERANCE = 2e-5
+# K4: one stream, a ragged last block of warps, the corpus batch; one frame,
+# the serving pool's chunk, the corpus chunk
+SCAN_SHAPES = [(B, T) for B in (1, 7, 256) for T in (1, 32, 128)]
+SCAN_OUTPUTS = ("br_idx", "padding", "mdb", "slot", "k_sel", "has_fit", "bits_sel")
 
 
 @pytest.fixture
@@ -601,3 +611,66 @@ def test_entry_on_the_card_launches_k1_and_k2_and_matches_the_cpu(cuda_device):
     got = dryrun_multichip(2)
     assert (kernels.LAUNCHES["rate_sweep"], kernels.LAUNCHES["pack"]) == (2, 4)
     assert sorted(got) == ["hq", "vbr"] and got["vbr"][0]["main_data"].shape == (4, 2, 1104)
+
+
+@pytest.mark.parametrize("B,T", SCAN_SHAPES)
+@pytest.mark.parametrize("preset", list(SCAN_OPTIONS))
+def test_scan_kernels_match_plain(cuda_device, preset, B, T):
+    """K4's selection scan and its placement scan against their plain
+    versions on the card, bit for bit, on every output and carry tensor: a
+    carry that is not fresh, rows ending early with `final` on their last
+    valid frame, rows with invalid frames mid-chunk; each call one launch."""
+    seed = 100_003 * len(preset) + 1009 * B + T
+    cfg, carry, ins, p_carry, hb = scan_input(scan_options(preset), B, T, seed, cuda_device)
+    before = dict(kernels.LAUNCHES)
+    new, outs = kernels.rate_loop_scan(cfg, carry, **ins)
+    assert kernels.LAUNCHES["rate_loop_scan"] == before["rate_loop_scan"] + 1
+    p_new, p_outs = kernels.rate_loop_scan_plain(cfg, carry, **ins)
+    for name, got, want in zip(SCAN_OUTPUTS, outs, p_outs):
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+    assert new.keys() == p_new.keys()
+    for name in new:
+        assert torch.equal(new[name], p_new[name]), name
+    slot, final, valid = outs[3], ins["final"], ins["valid"]
+    c2, mdb = kernels.placement_scan(cfg, p_carry, hb, slot, final, valid)
+    assert kernels.LAUNCHES["placement_scan"] == before["placement_scan"] + 1
+    p_c2, p_mdb = kernels.placement_scan_plain(cfg, p_carry, hb, slot, final, valid)
+    assert torch.equal(mdb, p_mdb)
+    assert all(torch.equal(c2[k], p_c2[k]) for k in ("stream_len", "slot_fifo"))
+
+
+def test_energy_vbr_scan_matches_plain_where_the_sum_order_decides(cuda_device):
+    """Rows whose first frame's bitrate index differs between torch.sum's
+    order over the ten-entry energy history on the card and another order
+    of the same shuffle tree: the plain version on the card gives the card
+    order's index (tests/torch_inputs.card_sum_of_ten), and K4 gives the
+    plain version's."""
+    (cfg, carry, ins, _, _), want = energy_knife_edge_scan_input(256, 8, 17, cuda_device)
+    _, outs = kernels.rate_loop_scan(cfg, carry, **ins)
+    _, p_outs = kernels.rate_loop_scan_plain(cfg, carry, **ins)
+    assert np.array_equal(p_outs[0][0].cpu().numpy(), want)
+    assert all(torch.equal(a, b) for a, b in zip(outs, p_outs))
+
+
+@pytest.mark.parametrize(
+    "preset,scans", [("compat", (1, 0)), ("strict", (1, 1)), ("hq_joint", (1, 1))]
+)
+def test_chunk_program_on_the_card_launches_each_scan_once(cuda_device, preset, scans):
+    from swiftmp3_tpu_torch.models import pipeline
+
+    o = scan_options(preset)
+    B, T = 3, 4
+    rng = np.random.default_rng(9)
+    pcm = torch.from_numpy(
+        (rng.standard_normal((B, T, 1152 * o.channels)) * 3000).astype(np.int16)
+    ).to(cuda_device)
+    la = torch.zeros((B, T, 576 * o.channels), dtype=torch.int16, device=cuda_device)
+    flags = torch.zeros((B, T), dtype=torch.bool, device=cuda_device)
+    run = pipeline.make_chunk_fn(o)
+    before = dict(kernels.LAUNCHES)
+    run(pipeline.init_carry(B, o, cuda_device), pcm, flags, ~flags, la)
+    torch.cuda.synchronize()
+    assert (
+        kernels.LAUNCHES["rate_loop_scan"] - before["rate_loop_scan"],
+        kernels.LAUNCHES["placement_scan"] - before["placement_scan"],
+    ) == scans

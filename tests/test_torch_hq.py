@@ -415,7 +415,7 @@ def test_demand_budget_donation():
     total = rng.integers(3000, 16000, 64).astype(np.int32)
     total[3] = 16000
     equal = np.minimum(total // 4, 4095).astype(np.int32)
-    got = tpipe.demand_budget_bits(_t(demand), _t(total), _t(equal))
+    got = tdsp.demand_budget_bits(_t(demand), _t(total), _t(equal))
     assert got.dtype == torch.int32
     for b in range(64):
         want = _golden_donation(demand[b].tolist(), int(total[b]), int(equal[b]))

@@ -230,7 +230,7 @@ def test_demand_vbr_choice_matches_the_golden_law(kw):
     jo = JaxOptions.hq(vbr=True, vbr_demand=True, **dict(kw, mode=JaxMode(kw["mode"])))
     cands, slot_bits = tpipe.demand_vbr_candidates(o)
     demands = [0, 1, 10**6] + [s + d for s in slot_bits for d in (-1, 0, 1)]
-    got = tpipe.demand_vbr_bitrate(
+    got = tdsp.demand_vbr_bitrate(
         torch.tensor(demands, dtype=torch.int32),
         torch.tensor(slot_bits, dtype=torch.int32),
         torch.tensor(cands, dtype=torch.int32),

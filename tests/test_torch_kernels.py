@@ -12,6 +12,8 @@ raises; K2's launch plan (its grid, tiles and shared memory) is held to the
 constants of its CUDA source.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,10 +27,13 @@ from swiftmp3_tpu_torch.ops import dsp as tdsp
 from swiftmp3_tpu_torch.ops import kernels
 
 from .torch_inputs import (
+    SCAN_OPTIONS,
     fma_knife_edges,
     knife_edge_sweep_input,
     pack_input,
     polyphase_input,
+    scan_input,
+    scan_options,
     strict_pack_input,
     sweep_input,
 )
@@ -41,7 +46,7 @@ PACK_SHAPES = [
     (4, 1872, 894), (4, 936, 910),
 ]
 K3_TOLERANCE = 2e-5  # tests/test_pallas.py
-NO_LAUNCHES = {"rate_sweep": 0, "pack": 0, "polyphase": 0}
+NO_LAUNCHES = {"rate_sweep": 0, "pack": 0, "polyphase": 0, "rate_loop_scan": 0, "placement_scan": 0}
 
 
 # --- plain versions against the Pallas kernels (interpret mode) ---------------
@@ -234,6 +239,8 @@ def test_cuda_tensors_launch_the_kernel_never_the_plain_version(monkeypatch):
     monkeypatch.setattr(kernels, "rate_sweep_plain", no_plain)
     monkeypatch.setattr(kernels, "pack_plain", no_plain)
     monkeypatch.setattr(kernels, "polyphase_chunk_plain", no_plain)
+    monkeypatch.setattr(kernels, "rate_loop_scan_plain", no_plain)
+    monkeypatch.setattr(kernels, "placement_scan_plain", no_plain)
     monkeypatch.setattr(kernels, "LAUNCHES", dict(NO_LAUNCHES))
 
     mag, g0 = sweep_input(9)
@@ -245,8 +252,16 @@ def test_cuda_tensors_launch_the_kernel_never_the_plain_version(monkeypatch):
     hist, pcm = polyphase_input(B=2, ch=2, T=3)
     S, x = kernels.polyphase_chunk(torch.from_numpy(hist), torch.from_numpy(pcm))
     assert S.shape == (2, 2, 108, 32) and x.shape == (2, 2, 480 + 3 * 1152)
-    assert launched == ["rate_sweep", "pack", "polyphase"]
-    assert kernels.LAUNCHES == {"rate_sweep": 1, "pack": 1, "polyphase": 1}
+    cfg, carry, ins, p_carry, hb = scan_input(scan_options("hq_joint"), B=3, T=5)
+    new, outs = kernels.rate_loop_scan(cfg, carry, **ins)
+    assert [tuple(o.shape) for o in outs] == [(5, 3)] * 4 + [(5, 3, 4)] * 3
+    assert outs[5].dtype == torch.bool and new["slot_fifo"].shape == (3, 1)
+    new, mdb = kernels.placement_scan(cfg, p_carry, hb, outs[3], ins["final"], ins["valid"])
+    assert mdb.shape == (5, 3) and new["stream_len"].shape == (3,)
+    assert launched == ["rate_sweep", "pack", "polyphase", "rate_loop_scan", "placement_scan"]
+    assert kernels.LAUNCHES == {
+        "rate_sweep": 1, "pack": 1, "polyphase": 1, "rate_loop_scan": 1, "placement_scan": 1,
+    }
 
 
 @pytest.mark.parametrize(
@@ -412,6 +427,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(monkeypatch):
     hist, pcm = polyphase_input(B=1, ch=2, T=2)
     kernels.polyphase_chunk(torch.from_numpy(hist), torch.from_numpy(pcm))
     kernels.polyphase_subbands(torch.from_numpy(hist), torch.from_numpy(pcm))
+    cfg, carry, ins, p_carry, hb = scan_input(scan_options("strict"), B=2, T=3)
+    kernels.rate_loop_scan(cfg, carry, **ins)
+    kernels.placement_scan(cfg, p_carry, hb, hb, ins["final"], ins["valid"])
     assert kernels.LAUNCHES == NO_LAUNCHES
 
 
@@ -525,3 +543,152 @@ def test_launch_runs_the_c_call_under_the_tensors_device(monkeypatch):
     with pytest.raises(RuntimeError, match="error 98 .refused."):
         kernels._launch("rate_sweep", dev, 1, 2)
     assert order[-1] == ("exit", dev)
+
+
+# --- K4: the scans over T ------------------------------------------------------
+
+
+@pytest.mark.parametrize("preset", list(SCAN_OPTIONS))
+def test_scans_take_the_plain_version_on_the_cpu(monkeypatch, preset):
+    """On CPU tensors the wrappers return the plain versions' results
+    (today's loops over T, op for op), launch nothing and count nothing."""
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(NO_LAUNCHES))
+    monkeypatch.setattr(kernels, "_launch", lambda *a: pytest.fail("launched"))
+    cfg, carry, ins, p_carry, hb = scan_input(scan_options(preset), B=3, T=6, seed=4)
+    new, outs = kernels.rate_loop_scan(cfg, carry, **ins)
+    p_new, p_outs = kernels.rate_loop_scan_plain(cfg, carry, **ins)
+    assert all(torch.equal(a, b) for a, b in zip(outs, p_outs))
+    assert new.keys() == p_new.keys() and all(torch.equal(new[k], p_new[k]) for k in new)
+    slot, final, valid = outs[3], ins["final"], ins["valid"]
+    c2, mdb = kernels.placement_scan(cfg, p_carry, hb, slot, final, valid)
+    p_c2, p_mdb = kernels.placement_scan_plain(cfg, p_carry, hb, slot, final, valid)
+    assert torch.equal(mdb, p_mdb) and all(torch.equal(c2[k], p_c2[k]) for k in c2)
+    assert kernels.LAUNCHES == NO_LAUNCHES
+
+
+@pytest.mark.parametrize(
+    "kind",
+    ["dtype", "shape", "carry_dtype", "fifo_shape", "device", "mixed_devices", "missing",
+     "unread", "placement_dtype", "placement_shape", "placement_device"],
+)
+def test_scan_wrappers_refuse_bad_inputs(monkeypatch, kind):
+    """A wrong dtype, shape or device raises before either the plain version
+    or the kernel runs, and so does an input the config needs but is not
+    given (or is given but not read)."""
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(NO_LAUNCHES))
+    monkeypatch.setattr(kernels, "rate_loop_scan_plain", lambda *a, **k: pytest.fail("ran"))
+    monkeypatch.setattr(kernels, "placement_scan_plain", lambda *a, **k: pytest.fail("ran"))
+    cfg, carry, ins, p_carry, hb = scan_input(scan_options("hq_joint"), B=3, T=4)
+    meta = torch.device("meta")
+    slot = hb.clone()
+    if kind == "dtype":
+        ins["bits"] = ins["bits"].to(torch.int64)
+    elif kind == "shape":
+        ins["k_budget"] = ins["k_budget"][:, :2]
+    elif kind == "carry_dtype":
+        carry["vbr_ehist"] = carry["vbr_ehist"].double()
+    elif kind == "fifo_shape":
+        carry["slot_fifo"] = carry["slot_fifo"][:2]
+    elif kind == "device":
+        ins["granule_e"] = ins["granule_e"].to(meta)
+    elif kind == "mixed_devices":
+        carry = {k: v.to(meta) for k, v in carry.items()}
+    elif kind == "missing":
+        ins["demand"] = None
+    elif kind == "unread":
+        ins["frame_e"] = ins["granule_e"][..., 0]
+    elif kind == "placement_dtype":
+        hb = hb.to(torch.int16)
+    elif kind == "placement_shape":
+        slot = slot[:3]
+    else:
+        p_carry["stream_len"] = p_carry["stream_len"].to(meta)
+    with pytest.raises((TypeError, ValueError)):
+        if kind.startswith("placement"):
+            kernels.placement_scan(cfg, p_carry, hb, slot, ins["final"], ins["valid"])
+        else:
+            kernels.rate_loop_scan(cfg, carry, **ins)
+    assert kernels.LAUNCHES == NO_LAUNCHES
+
+
+@pytest.mark.parametrize("field", ["n_gran", "depth", "cands", "frames"])
+def test_scan_params_refuse_what_the_kernel_cannot_hold(field):
+    cfg = scan_input(scan_options("demand_vbr"), B=1, T=1)[0]
+    K, T = 1, 1
+    if field == "frames":
+        T = 0
+    elif field == "n_gran":
+        cfg = dataclasses.replace(cfg, n_gran=kernels.K4_MAX_GRANULES + 1)
+    elif field == "depth":
+        K = kernels.K4_MAX_DEPTH + 1
+    else:
+        cfg = dataclasses.replace(cfg, cands=cfg.cands + (1,) * kernels.K4_MAX_CANDS)
+    with pytest.raises(ValueError):
+        kernels.scan_params(cfg, 1, T, K)
+
+
+@pytest.mark.parametrize(
+    "preset,scans", [("compat", (1, 0)), ("energy_vbr", (1, 0)), ("strict", (1, 1)),
+                     ("hq_joint", (1, 1)), ("lsf_strict", (1, 1))],
+)
+def test_chunk_program_runs_one_scan_a_chunk(monkeypatch, preset, scans):
+    """make_chunk_fn calls rate_loop_scan once a chunk, and placement_scan
+    once under the strict entropy (spec_strict, hq) and not otherwise: no
+    Python loop over T is left around them."""
+    from swiftmp3_tpu_torch.models import pipeline
+
+    calls = {"rate_loop_scan": 0, "placement_scan": 0}
+
+    def counted(name):
+        fn = getattr(kernels, name)
+
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(kernels, name, counted(name))
+    o = scan_options(preset)
+    B, T = 2, 3
+    rng = np.random.default_rng(5)
+    pcm = torch.from_numpy(
+        (rng.standard_normal((B, T, o.samples_per_frame * o.channels)) * 3000).astype(np.int16)
+    )
+    la = torch.zeros((B, T, 576 * o.channels), dtype=torch.int16)
+    run = pipeline.make_chunk_fn(o)
+    carry = pipeline.init_carry(B, o, torch.device("cpu"))
+    for _ in range(2):
+        carry, _ = run(carry, pcm, torch.zeros((B, T), dtype=torch.bool),
+                       torch.ones((B, T), dtype=torch.bool), la)
+    assert (calls["rate_loop_scan"], calls["placement_scan"]) == (2 * scans[0], 2 * scans[1])
+
+
+def test_scan_layout_matches_the_cuda_source():
+    """The parameter block and the pointer blocks the wrapper hands K4 name
+    the fields of csrc/rate_loop_scan.cu's structs in their order, and the
+    kernel's limits equal the wrapper's."""
+    import re
+
+    with open(f"{kernels.CSRC_DIR}/rate_loop_scan.cu") as fh:
+        src = fh.read()
+
+    def fields(struct):
+        body = re.search(rf"struct {struct} {{(.*?)}};", src, re.S).group(1)
+        return re.findall(r"^\s*[\w ]+?\*? ?(\w+)(?:\[\d+\])?;", body, re.M)
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert fields("SwmScanParams") == [f[0] for f in kernels._ScanParams._fields_]
+    assert fields("SwmScanIo") == [f[0] for f in kernels._ScanIo._fields_]
+    assert fields("SwmPlacementIo") == [f[0] for f in kernels._PlacementIo._fields_]
+    assert "int bitrates[16];" in src and kernels.K4_MAX_CANDS == 16 == constant("kTable")
+    assert constant("kCandidates") == kernels.N_GAIN_CANDIDATES
+    assert constant("kMaxGranules") == kernels.K4_MAX_GRANULES
+    assert constant("kMaxDepth") == kernels.K4_MAX_DEPTH
+    assert constant("kMaxCands") == kernels.K4_MAX_CANDS
+    assert constant("kHistory") == kernels.K4_HISTORY
+    assert constant("kPart23Max") == tdsp.PART23_MAX_BITS
+    assert [constant(n) for n in ("kCbr", "kEnergy", "kDemand")] == list(kernels.RATE_LAWS.values())

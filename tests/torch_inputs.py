@@ -61,6 +61,179 @@ def pack_input(F: int, P: int, cap: int, seed: int = 7, overflow: bool = False):
     return ch, nb
 
 
+# K4's configurations: compat CBR, energy VBR (with CRC), spec_strict, hq
+# joint stereo (linbits and demand_budget), reservoir depth 3, demand VBR,
+# an LSF and a free-format preset ((preset factory, keyword arguments))
+SCAN_OPTIONS = {
+    "compat": (None, dict(mode="stereo", bitrate_kbps=128, sample_rate=44100)),
+    "energy_vbr": (None, dict(mode="joint_stereo", bitrate_kbps=128, sample_rate=44100,
+                              vbr=True, quality=3, crc_protected=True)),
+    "strict": ("spec_strict", dict(mode="joint_stereo", bitrate_kbps=128, sample_rate=44100)),
+    "hq_joint": ("hq", dict(mode="joint_stereo", bitrate_kbps=128, sample_rate=44100)),
+    "depth3": ("hq", dict(mode="mono", bitrate_kbps=96, sample_rate=44100, reservoir_depth=3)),
+    "demand_vbr": ("hq", dict(mode="mono", bitrate_kbps=128, sample_rate=44100, vbr=True,
+                              vbr_demand=True, quality=5)),
+    "lsf_strict": ("spec_strict", dict(mode="joint_stereo", bitrate_kbps=64, sample_rate=22050)),
+    "free_format": ("spec_strict", dict(mode="mono", bitrate_kbps=150, sample_rate=44100,
+                                        free_format=True, linbits_tables=True)),
+}
+
+
+def scan_options(preset: str):
+    """The port's MP3EncoderOptions of SCAN_OPTIONS[preset]."""
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+
+    factory, kwargs = SCAN_OPTIONS[preset]
+    return (getattr(MP3EncoderOptions, factory) if factory else MP3EncoderOptions)(**kwargs)
+
+
+def scan_input(options, B: int, T: int, seed: int = 0, device="cpu"):
+    """K4's inputs for B streams of T frames under `options`, made from a
+    seed on `device`: each granule's 20 candidate bit counts falling with
+    the gain (a few granules silent), evaluated up to a seeded start gain,
+    budgets of 19 or 20, energies over seven decades (some zero), the
+    priced demands near the candidates'; most rows valid throughout, some
+    ending early with `final` on their last valid frame, some with invalid
+    frames mid-chunk; a carry that is not fresh. Returns (config, carry,
+    the selection scan's keyword inputs, the placement scan's carry and its
+    frame bytes hb [T, B])."""
+    import torch
+
+    from swiftmp3_tpu_torch.models import pipeline
+
+    cfg = pipeline.rate_loop_config(options)
+    G, K = cfg.n_gran, options.reservoir_depth
+    rng = np.random.default_rng(seed)
+    start = rng.integers(100, 9000, (T, B, G, 1))
+    steps = rng.integers(0, 3, (T, B, G, 20)).cumsum(-1)
+    bits = np.maximum(start * 0.88 ** steps + rng.integers(-20, 20, (T, B, G, 20)), 0).astype(int)
+    bits[rng.random((T, B, G)) < 0.05] = 0
+    gstart = rng.integers(120, 256, (T, B, G, 1))
+    evaluated = (np.arange(20) == 0) | (gstart + 4 * np.arange(20) < 255)
+    k_budget = np.where(rng.random((T, B, G)) < 0.1, 19, 20)
+
+    def energy(shape):
+        e = 10 ** rng.uniform(-9, -2, shape)
+        return np.where(rng.random(shape) < 0.05, 0, e).astype(np.float32)
+
+    n_valid = np.where(rng.random(B) < 0.7, T, rng.integers(0, T + 1, B))
+    valid = np.arange(T)[:, None] < n_valid[None, :]
+    final = (np.arange(T)[:, None] == n_valid[None, :] - 1) & (rng.random(B) < 0.6)
+    holes = (rng.random((T, B)) < 0.1) & (rng.random(B) < 0.2)
+    valid = valid & ~holes
+    sr = options.sample_rate
+    slots = rng.integers(100, 1500, (B, K))
+    carry = {
+        "stream_len": rng.integers(0, 4000, B),
+        "avail": rng.integers(0, options.reservoir_cap + 1, B),
+        "pad_rem": rng.integers(0, sr, B),
+        "slot_fifo": slots,
+        "vbr_ehist": energy((B, 10)),
+        "vbr_count": rng.integers(0, 11, B),
+    }
+    demand = np.maximum(bits[..., 10] + rng.integers(-200, 200, (T, B, G)), 0)
+    frame_demand = bits[..., min(options.quality, 19)].sum(-1)
+    ins = {
+        "bits": bits, "evaluated": evaluated, "k_budget": k_budget,
+        "granule_e": energy((T, B, G)), "final": final, "valid": valid,
+        "frame_e": energy((T, B)) if cfg.rate_law == "energy" else None,
+        "demand": demand if cfg.demand_budget else None,
+        "frame_demand": frame_demand if cfg.rate_law == "demand" else None,
+    }
+    placement_carry = {"stream_len": rng.integers(0, 4000, B), "slot_fifo": slots[::-1].copy()}
+    hb = rng.integers(0, 1200, (T, B))
+
+    def tensor(x):
+        if x is None:
+            return None
+        x = np.array(x)
+        if x.dtype.kind == "f":
+            dtype = torch.float32
+        else:
+            dtype = torch.bool if x.dtype == bool else torch.int32
+        return torch.from_numpy(x).to(dtype).to(device)
+
+    def tensors(d):
+        return {k: tensor(v) for k, v in d.items()}
+
+    return cfg, tensors(carry), tensors(ins), tensors(placement_carry), tensor(hb)
+
+
+def card_sum_of_ten(x: np.ndarray) -> np.ndarray:
+    """float32 sums of rows of ten in the order torch.sum takes on the card
+    (torch 2.11, H100): entries i and i + 8 on lanes 0 and 1, then the eight
+    lanes by shuffles down by 4, 2 and 1."""
+    a = x[..., :8].astype(np.float32).copy()
+    a[..., :2] += x[..., 8:10]
+    return ((a[..., 0] + a[..., 4]) + (a[..., 2] + a[..., 6])) + (
+        (a[..., 1] + a[..., 5]) + (a[..., 3] + a[..., 7])
+    )
+
+
+def _energy_law_index(total, count, energy, base, quality, table):
+    """dsp.vbr_choose_bitrate then bitrate_index_device in float32 numpy, on
+    the sum of the history `total`."""
+    from swiftmp3_tpu_torch.ops.dsp import vbr_law
+
+    max_adj, lo, hi = vbr_law(base, quality)
+    f32 = np.float32
+    avg = np.where(count > 0, total / np.maximum(count, 1).astype(f32), energy).astype(f32)
+    ratio = np.clip(energy / np.maximum(avg, f32(1e-4)), f32(0.5), f32(2.0)).astype(f32)
+    adj = np.trunc(((ratio - f32(1.0)) * f32(max_adj)).astype(f32)).astype(np.int64)
+    target = np.maximum(np.minimum(base + adj, hi), lo)
+    return np.argmin(np.abs(table - target[..., None]), axis=-1)
+
+
+def energy_knife_edge_scan_input(B: int, T: int, seed: int = 0, device="cpu"):
+    """scan_input of SCAN_OPTIONS["energy_vbr"] whose first frame sits, in
+    every row, on a knife edge of the energy law: the frame's energy is
+    chosen so that its bitrate index differs between the sum of the ten-entry
+    history in the card's order (card_sum_of_ten) and in the order of
+    shuffles down by 1, 2 and 4. Returns scan_input's tuple and the first
+    frame's index in the card's order [B]."""
+    import torch
+
+    from swiftmp3_tpu_torch.ops.dsp import BITRATE_VALUES
+
+    o = scan_options("energy_vbr")
+    cfg, carry, ins, p_carry, hb = scan_input(o, B, T, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    f32 = np.float32
+    hist = np.zeros((B, 10), f32)
+    energy = np.zeros(B, f32)
+    want = np.zeros(B, np.int64)
+    ten = np.full(B, 10)
+    for b in range(B):
+        while True:
+            h = (10 ** rng.uniform(-3.5, -1, 10)).astype(f32)
+            a = h[:8].copy()
+            a[:2] += h[8:]
+            up = ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]))
+            card = card_sum_of_ten(h)
+            if up == card:
+                continue
+            avg = card / f32(10)
+            m = np.arange(-30, 61)  # the ratio's clamp: (0.5 - 1) * 53 > -30
+            e0 = (avg * (1 + m / 53.0)).astype(f32)
+            e = (e0[:, None].view(np.int32) + np.arange(-8, 9)).view(f32).reshape(-1)
+            i_card = _energy_law_index(np.full(e.shape, card), 10, e, o.bitrate_kbps, o.quality,
+                                       BITRATE_VALUES)
+            i_up = _energy_law_index(np.full(e.shape, up), 10, e, o.bitrate_kbps, o.quality,
+                                     BITRATE_VALUES)
+            edges = np.nonzero(i_card != i_up)[0]
+            if len(edges):
+                k = edges[rng.integers(len(edges))]
+                hist[b], energy[b], want[b] = h, e[k], i_card[k]
+                break
+    carry["vbr_ehist"] = torch.from_numpy(hist).to(device)
+    carry["vbr_count"] = torch.from_numpy(ten.astype(np.int32)).to(device)
+    ins["frame_e"][0] = torch.from_numpy(energy).to(device)
+    assert np.array_equal(
+        _energy_law_index(card_sum_of_ten(hist), ten, energy, o.bitrate_kbps, o.quality,
+                          BITRATE_VALUES), want)
+    return (cfg, carry, ins, p_carry, hb), want
+
+
 def chunk_kernel_inputs(options, device, frames: np.ndarray, la: np.ndarray = None) -> dict:
     """Run one chunk of the port's chunk program on `device` from a fresh
     carry (frames [B, T, spf*ch], la its lookahead or None) and return the
