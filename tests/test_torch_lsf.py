@@ -25,7 +25,10 @@
   reference tests' makers;
 - an hq LSF session checkpoint crosses between the packages both ways;
 - encode_batch at LSF (uneven lengths) and a StreamPool at 16 kHz equal the
-  port's sessions, and the native renderer the Python FrameAssembler.
+  port's sessions, and the native renderer the Python FrameAssembler;
+- encode_corpus at the benchmark's LSF configuration (spec_strict joint
+  stereo, 64 kbps, 22 050 Hz) writes the golden backend's session files,
+  and an LSF strict step records the span names of an MPEG-1 strict step.
 
 The JAX ops run under a few small jax.jit compiles.
 """
@@ -504,6 +507,75 @@ def test_lsf_corpus_and_cli_files(tmp_path):
     audio = _encode(s, pcm)
     with open(out, "rb") as fh:
         assert fh.read() == s.generate_xing_header() + audio
+
+
+def _lsf_strict64(**kw):
+    """The benchmark's LSF configuration (portbench/configs/lsf_strict64.json):
+    spec_strict joint stereo at 64 kbps and 22 050 Hz."""
+    return MP3EncoderOptions.spec_strict(mode="joint_stereo", bitrate_kbps=64, sample_rate=22050, **kw)
+
+
+def _stereo_streams(seed: int) -> list:
+    """Three int16 stereo streams of uneven length (whole frames, a partial
+    frame, a partial granule's worth), correlated channels so M/S engages."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in (576 * 9 + 100, 576 * 6, 576 * 4 + 17):
+        mono = rng.standard_normal(n + 8)
+        for i in range(1, 8):
+            mono[i:] += mono[:-i] / (i + 1)
+        left = 0.4 * np.sin(np.arange(n) * 0.05) + 0.05 * mono[:n]
+        right = 0.8 * left + 0.05 * mono[8:]
+        out.append((np.stack([left, right], axis=-1).reshape(-1) * 20000).astype(np.int16))
+    return out
+
+
+def test_lsf_strict64_corpus_files_equal_golden_sessions():
+    """encode_corpus at the benchmark's LSF configuration, 4 frames a step,
+    writes [ID3][Xing][frames] byte-equal to the golden backend's session
+    files: MPEG-2 headers at 64 kbps, 208/209-byte frames of 576 samples."""
+    from swiftmp3_tpu_torch.options import ID3Tag
+    from swiftmp3_tpu_torch.parallel import encode_corpus
+
+    o = _lsf_strict64()
+    streams = _stereo_streams(18)
+    tags = [ID3Tag(title=f"Spot {i}", artist="lsf", track=i + 1) for i in range(len(streams))]
+    files = encode_corpus(o, streams, tags=tags, device=CPU, frames_per_step=4)
+    for pcm, tag, data in zip(streams, tags, files):
+        s = new_session(_lsf_strict64(id3_tag=tag), CPU, backend="numpy")
+        audio = _encode(s, pcm)
+        xing = s.generate_xing_header()
+        assert data == s.generate_id3_tag() + xing + audio
+        frames = ti.walk_frames(xing + audio)
+        assert {(f["version"], f["sample_rate"], f["samples"]) for f in frames} == {("2", 22050, 576)}
+        assert {(f["bitrate_kbps"], f["size"]) for f in frames[1:]} == {(64, 208), (64, 209)}
+
+
+def test_lsf_strict_step_emits_the_spans_of_an_mpeg1_strict_step():
+    """Under profiling.enable() a CPU LSF strict step records the same span
+    names as an MPEG-1 strict step: every LSF-only branch runs inside one of
+    the chunk program's phases."""
+    from swiftmp3_tpu_torch.parallel import encode_corpus
+    from swiftmp3_tpu_torch.utils import profiling
+
+    def names(o, n_frame):
+        pcm = (np.sin(np.arange(n_frame * 6) * 0.05) * 12000).astype(np.int16)
+        profiling.disable()
+        profiling.reset()
+        profiling.enable()
+        try:
+            encode_corpus(o, [pcm], device=CPU, frames_per_step=4)
+        finally:
+            profiling.disable()
+        got = set(profiling.snapshot()["totals"])
+        profiling.reset()
+        return got
+
+    lsf = names(_lsf_strict64(), 576 * 2)
+    mpeg1 = names(MP3EncoderOptions.spec_strict(mode="joint_stereo", bitrate_kbps=128), 1152 * 2)
+    assert lsf == mpeg1
+    assert {"chunk.phase1", "chunk.scalefactors", "chunk.sweep", "chunk.loop_t", "chunk.finalize",
+            "chunk.pack", "batch.build", "drain.render"} <= lsf
 
 
 @pytest.mark.parametrize(
