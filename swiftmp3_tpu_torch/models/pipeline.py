@@ -218,6 +218,16 @@ def main_data_cap(options: MP3EncoderOptions) -> int:
     return cap + (cap & 1)
 
 
+def max_frame_bytes(options: MP3EncoderOptions) -> int:
+    """The most bytes a frame of these options can take, header and side
+    information included: a padded frame at the top rate of the header's
+    table (320 kbps, 160 at LSF rates; free format's exact rate)."""
+    top = options.bitrate_kbps if options.free_format else (160 if options.lsf else 320)
+    _, br_val = frame_bitrate(options, top)
+    slots_per_kbps, _, _ = frame_geometry(options)
+    return (slots_per_kbps * br_val * 1000) // options.sample_rate + 1
+
+
 def switch_region0(block: torch.Tensor, sample_rate: int) -> torch.Tensor:
     """The region-0 line boundary of switching granules at LSF rates, by
     block type (pipeline.py:567-584): band-derived for SHORT
@@ -827,37 +837,42 @@ def _host_array(x) -> np.ndarray:
     return np.asarray(x)
 
 
+_FRAME_FIELDS = ("bitrate_index", "padding", "mdb", "slot", "mode_ext")  # one word a frame
+
+
+def meta_layout(options: MP3EncoderOptions) -> dict:
+    """Where each field lies in a packed frame's meta, the int32 words that
+    follow its `main_data_cap` bytes of main_data: {name: (first word,
+    words)}, in the chunk program's order, the granule fields G = n_granules
+    x channels words wide (subblock_gain and table_select 3 G, scfsi a word
+    a channel)."""
+    G, ch = options.n_granules * options.channels, options.channels
+    widths = [
+        ("bitrate_index", 1), ("padding", 1), ("mdb", 1), ("slot", 1),
+        *((name, G) for name in _GRANULE_FIELDS),
+        ("subblock_gain", 3 * G), ("table_select", 3 * G), ("count1table", G),
+        ("scalefac_compress", G), ("scfsi", ch), ("mode_ext", 1),
+    ]
+    layout, o = {}, 0
+    for name, n in widths:
+        layout[name] = (o, n)
+        o += n
+    return layout
+
+
 def fetch_outputs(outs, options: MP3EncoderOptions) -> dict:
     """Unpack the packed chunk output to named host arrays, all batch-major
     [B, T, ...] (twin of pipeline.py:1206-1240)."""
     n_gran = options.n_granules * options.channels
     packed = _host_array(outs["packed"])
     cap = main_data_cap(options)
-    main_data = packed[..., :cap]
     meta = packed[..., cap:].copy().view(np.int32)
     B, T = meta.shape[0], meta.shape[1]
-    d = {
-        "bitrate_index": meta[..., 0],
-        "padding": meta[..., 1],
-        "mdb": meta[..., 2],
-        "slot": meta[..., 3],
-        "main_data": main_data,
-    }
-    o = 4
-    for name in _GRANULE_FIELDS:
-        d[name] = meta[..., o : o + n_gran]
-        o += n_gran
-    d["subblock_gain"] = meta[..., o : o + 3 * n_gran].reshape(B, T, n_gran, 3)
-    o += 3 * n_gran
-    d["table_select"] = meta[..., o : o + 3 * n_gran].reshape(B, T, n_gran, 3)
-    o += 3 * n_gran
-    d["count1table"] = meta[..., o : o + n_gran]
-    o += n_gran
-    d["scalefac_compress"] = meta[..., o : o + n_gran]
-    o += n_gran
-    d["scfsi"] = meta[..., o : o + options.channels]
-    o += options.channels
-    d["mode_ext"] = meta[..., o]
+    d = {"main_data": packed[..., :cap]}
+    for name, (o, n) in meta_layout(options).items():
+        d[name] = meta[..., o] if name in _FRAME_FIELDS else meta[..., o : o + n]
+    for name in ("subblock_gain", "table_select"):
+        d[name] = d[name].reshape(B, T, n_gran, 3)
     d["hb"] = (d["part23"].sum(axis=-1) + 7) // 8
     return d
 

@@ -3,18 +3,20 @@
 
 `BatchEncoder` encodes B independent streams in lockstep: PCM rides as
 batch-major [B, T, frame] chunks, the chunk program runs on the device, and
-each stream's packed outputs render to bytes through the port's native
-renderer (`swiftmp3_tpu_torch.native.NativeStreamRenderer`), or with
-`use_native=False` through the Python `FrameAssembler`, the behavioural
-reference. `reset_lanes` recycles finished lanes for new streams (the
-serving layer, `parallel.pool.StreamPool`). Pinned host buffers with
+the packed outputs render to bytes through the port's native renderer, one
+call a range of streams reading the packed host buffer in place
+(`swiftmp3_tpu_torch.native.lib.render_batch`, each stream's state a
+`NativeStreamRenderer`), or with `use_native=False` through the Python
+`FrameAssembler`, the behavioural reference. `reset_lanes` recycles
+finished lanes for new streams (the serving layer,
+`parallel.pool.StreamPool`). Pinned host buffers with
 non-blocking copies stand in for the JAX version's `device_put` and
 `copy_to_host_async`, so uploads and downloads overlap other work.
 
 Given a mesh (`parallel.mesh`), the batch is cut into one contiguous span a
 mesh position; each position holds its rows' carry on its own device and
 runs the chunk program on them, dispatched in position order from the one
-host thread, and the outputs are joined in position order to render.
+host thread, and the positions' outputs render as one batch, in row order.
 
 `encode_batch` encodes a list of streams, each as one session would;
 `encode_corpus` makes complete files of them ([ID3][Xing][frames]);
@@ -40,10 +42,14 @@ from ..models.pipeline import (
     fetch_outputs,
     frame_results_from_outputs,
     init_carry,
+    main_data_cap,
     make_chunk_fn,
+    max_frame_bytes,
+    meta_layout,
     resolve_device,
 )
 from ..native import NativeStreamRenderer
+from ..native.lib import BATCH_FIELDS, check_written, render_batch
 from ..options import SAMPLES_PER_GRANULE, MP3EncoderOptions
 from ..utils import profiling
 from ..utils.profiling import annotate
@@ -68,8 +74,8 @@ class BatchEncoder:
 
     Host rendering runs the native C++ renderer (a failed build raises), or
     with use_native=False the Python FrameAssembler; both give the same
-    bytes. render_threads (default: the cores, at most 8) render streams in
-    parallel."""
+    bytes. The native render makes one call a range of rows, at most
+    render_threads (default: the cores, at most 8) ranges in parallel."""
 
     def __init__(
         self,
@@ -109,6 +115,15 @@ class BatchEncoder:
         self.use_native = use_native
         # each stream's renderer: NativeStreamRenderer, or FrameAssembler
         self.renderers = [self._renderer() for _ in range(rows)]
+        # the packed output's frame as the native render reads it: main_data
+        # to the cap, then the meta fields' words
+        layout = meta_layout(options)
+        meta_words = sum(n for _, n in layout.values())
+        self._cap = main_data_cap(options)
+        self._frame_stride = self._cap + 4 * meta_words
+        self._layout = np.array([layout[f][0] for f in BATCH_FIELDS] + [meta_words], dtype=np.int32)
+        self._frame_bytes = max_frame_bytes(options)  # a frame's most bytes out
+        self._arena = None  # the render's output, a row a stream, reused drain to drain
 
     @property
     def carry(self) -> dict:
@@ -223,8 +238,9 @@ class BatchEncoder:
             self.renderers[b] = self._renderer()
 
     def drain(self, outs: dict, valid: np.ndarray) -> List[bytes]:
-        """Render one chunk's outputs to bytes per stream (streams render in
-        parallel; the native renderer runs without the interpreter lock)."""
+        """Render one chunk's outputs to bytes per stream (ranges of streams
+        render in parallel; the native renderer runs without the interpreter
+        lock)."""
         with annotate("batch.drain"):
             parts = outs["parts"] if "parts" in outs else [outs]
             with annotate("drain.wait"):
@@ -235,67 +251,84 @@ class BatchEncoder:
                 return self._render(parts, valid)
 
     def _render(self, parts: list, valid: np.ndarray) -> List[bytes]:
-        """drain's host half, once the copies have landed. Traced, the render
-        counts its pool's size (`render.threads`) and the time each stream's
-        render takes (`render.busy_ns`, summed over the pool's threads)."""
+        """drain's host half, once the copies have landed: the rows split
+        into at most render_threads contiguous ranges, one native call a
+        range (`native.render_batch`) reading the packed output in place.
+        Traced, the render counts its pool's size (`render.threads`), its
+        native calls (`render.native_calls`) and their time
+        (`render.busy_ns`, summed over the pool's threads)."""
         traced = profiling.enabled()
         if traced:
             threads = self._render_threads if self._pool is not None and self.use_native else 1
             profiling.count("render.threads", threads)
+        valid = np.asarray(valid)
+        if not self.use_native:
+            return self._render_python(parts, valid, traced)
+        B, T = valid.shape
+        if B != len(self.renderers):
+            raise ValueError(f"valid has {B} rows; the encoder renders {len(self.renderers)}")
+        packed, rows = [], []
+        for p in parts:
+            p = torch.as_tensor(p["packed"])
+            if p.device.type != "cpu" or p.dtype != torch.uint8 or p.shape[1:] != (T, self._frame_stride):
+                raise ValueError(
+                    f"packed output {tuple(p.shape)} {p.dtype} on {p.device}: expected host "
+                    f"uint8 [rows, {T}, {self._frame_stride}]"
+                )
+            p = p.contiguous()
+            packed.append(p)  # held until the calls return
+            rows.append(np.arange(p.shape[0], dtype=np.uintp) * p.stride(0) + p.data_ptr())
+        rows = np.concatenate(rows)
+        states = np.array([r.handle for r in self.renderers], dtype=np.uintp)
+        counts = valid.sum(axis=1, dtype=np.int32)  # valid is a prefix along T
+        slot = T * self._frame_bytes
+        if self._arena is None or self._arena.shape != (B, slot):
+            self._arena = np.empty((B, slot), dtype=np.uint8)
+        arena = self._arena
+        sizes = np.empty((B, T), dtype=np.int32)
+        written = np.empty(B, dtype=np.int64)
+        emitted = np.empty(B, dtype=np.int32)
+        calls = min(self._render_threads, B) if self._pool is not None else 1  # the pool: B > 1
+        edges = [B * k // calls for k in range(calls + 1)]
+
+        def render_range(k: int) -> int:
+            lo, hi = edges[k], edges[k + 1]
+            t0 = time.perf_counter_ns()
+            render_batch(
+                states[lo:hi], rows[lo:hi], counts[lo:hi], self._cap, self._frame_stride,
+                self._layout, arena[lo:hi], sizes[lo:hi], written[lo:hi], emitted[lo:hi],
+            )
+            return time.perf_counter_ns() - t0
+
+        busy = [render_range(0)] if calls == 1 else list(self._pool.map(render_range, range(calls)))
+        if traced:
+            profiling.count("render.native_calls", calls)
+            profiling.count("render.busy_ns", sum(busy))
+        failed = np.flatnonzero(written < 0)
+        if failed.size:
+            check_written(int(written[failed[0]]))
+        out = []
+        for b, r in enumerate(self.renderers):
+            r.frame_sizes.extend(sizes[b, : emitted[b]].tolist())
+            out.append(arena[b, : written[b]].tobytes())
+        return out
+
+    def _render_python(self, parts: list, valid: np.ndarray, traced: bool) -> List[bytes]:
+        """The use_native=False render: the FrameAssembler a frame at a time
+        (`render.busy_ns` its whole time)."""
         packed = parts[0]["packed"] if len(parts) == 1 else torch.cat([p["packed"] for p in parts])
         outs = fetch_outputs({"packed": packed}, self.options)
-        valid = np.asarray(valid)
         B = valid.shape[0]
-        if not self.use_native:
-            t0 = time.perf_counter_ns()
-            emitted = [bytearray() for _ in range(B)]
-            for t in range(valid.shape[1]):
-                for b in range(B):
-                    if valid[b, t]:
-                        fr = frame_results_from_outputs(outs, self.options, t, b)
-                        emitted[b] += self.renderers[b].push(fr)
-            if traced:
-                profiling.count("render.busy_ns", time.perf_counter_ns() - t0)
-            return [bytes(e) for e in emitted]
-        counts = valid.sum(axis=1)  # valid is a prefix along T
-
-        def render_one(b: int) -> bytes:
-            F = int(counts[b])
-            return self.renderers[b].render_packed(
-                outs["bitrate_index"][b, :F],
-                outs["padding"][b, :F],
-                outs["mdb"][b, :F],
-                outs["slot"][b, :F],
-                outs["part23"][b, :F],
-                outs["big_values"][b, :F],
-                outs["gain"][b, :F],
-                outs["block_type"][b, :F],
-                outs["preflag"][b, :F],
-                outs["region0"][b, :F],
-                outs["region1"][b, :F],
-                outs["subblock_gain"][b, :F],
-                outs["main_data"][b, :F],
-                outs["hb"][b, :F],
-                table_select=outs["table_select"][b, :F],
-                count1table=outs["count1table"][b, :F],
-                scalefac_compress=outs["scalefac_compress"][b, :F],
-                scfsi=outs["scfsi"][b, :F],
-                mode_ext=outs["mode_ext"][b, :F],
-            )
-
+        t0 = time.perf_counter_ns()
+        emitted = [bytearray() for _ in range(B)]
+        for t in range(valid.shape[1]):
+            for b in range(B):
+                if valid[b, t]:
+                    fr = frame_results_from_outputs(outs, self.options, t, b)
+                    emitted[b] += self.renderers[b].push(fr)
         if traced:
-            untimed = render_one
-
-            def render_one(b: int) -> bytes:
-                t0 = time.perf_counter_ns()
-                try:
-                    return untimed(b)
-                finally:
-                    profiling.count("render.busy_ns", time.perf_counter_ns() - t0)
-
-        if self._pool is None:
-            return [render_one(b) for b in range(B)]
-        return list(self._pool.map(render_one, range(B)))
+            profiling.count("render.busy_ns", time.perf_counter_ns() - t0)
+        return [bytes(e) for e in emitted]
 
     def flush(self) -> List[bytes]:
         return [r.flush_buffered() for r in self.renderers]

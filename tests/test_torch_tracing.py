@@ -3,7 +3,7 @@ a span site records nothing and hands back one shared no-op context; on,
 the same bytes come out and the port's spans nest as the benchmark reads
 them (`batch.step` around the chunk program's phases, `batch.drain` around
 the wait and the render), on the clock the profiler's events carry, with
-the render pool's busy time counted.
+the render's native calls and their busy time counted.
 
 Tiny compat and strict encodes (2 streams, 4 frames a step); nothing here
 imports JAX.
@@ -155,8 +155,10 @@ def test_the_render_counts_its_busy_time_against_its_pool(render_threads):
     renders = _named(snap, "drain.render")
     threads = snap["counters"]["render.threads"] / len(renders)  # counted once a render
     assert threads == (1 if render_threads == 1 else min(8, os.cpu_count() or 1))
-    busy = snap["counters"]["render.busy_ns"]
+    busy = snap["counters"]["render.busy_ns"]  # the native calls' time
     assert 0 < busy <= threads * sum(s[2] - s[1] for s in renders)
+    # one native call a range of rows, at most one range a thread
+    assert snap["counters"]["render.native_calls"] == len(renders) * min(threads, len(streams))
 
 
 def test_counters_add_up_across_threads():
