@@ -421,6 +421,7 @@ def make_chunk_fn(options: MP3EncoderOptions):
     iso_short = options.iso_short_blocks
     joint = options.mode is Mode.JOINT_STEREO
     mode_ext = mode_bits(options.mode.value)[1]
+    layout = meta_layout(options)  # the packed frame's meta fields, in order
     win_seq = options.window_sequencing
     linbits = options.linbits_tables
     demand_budget = loop_cfg.demand_budget
@@ -755,28 +756,31 @@ def make_chunk_fn(options: MP3EncoderOptions):
                 mode_ext_t = torch.full((T, B), mode_ext, dtype=i32, device=dev)
             if is_emit is not None:
                 mode_ext_t = torch.where(is_emit.transpose(0, 1), 1, mode_ext_t)  # intensity
-            meta = torch.cat(
-                [
-                    br_idx[..., None],
-                    padding[..., None],
-                    mdb[..., None],
-                    slot[..., None],
-                    part23,  # part2_3_length
-                    tm(big_values_b),
-                    tm(gain_b),
-                    tm(block_b),
-                    tm(pref_b),
-                    tm(region0_b),
-                    tm(region1_b),
-                    tm(sb_gain_b).reshape(T, B, 3 * n_gran),
-                    table_sel,
-                    tm(c1t_b),  # count1table
-                    tm(scfc_b),  # scalefac_compress
-                    scfsi_t,
-                    mode_ext_t[..., None].to(i32),
-                ],
-                dim=-1,
-            ).to(i32)
+            fields = {  # [T, B, width] each
+                "bitrate_index": br_idx[..., None],
+                "padding": padding[..., None],
+                "mdb": mdb[..., None],
+                "slot": slot[..., None],
+                "part23": part23,  # part2_3_length
+                "big_values": tm(big_values_b),
+                "gain": tm(gain_b),
+                "block_type": tm(block_b),
+                "preflag": tm(pref_b),
+                "region0": tm(region0_b),
+                "region1": tm(region1_b),
+                "subblock_gain": tm(sb_gain_b).reshape(T, B, 3 * n_gran),
+                "table_select": table_sel,
+                "count1table": tm(c1t_b),
+                "scalefac_compress": tm(scfc_b),
+                "scfsi": scfsi_t,
+                "mode_ext": mode_ext_t[..., None].to(i32),
+            }
+            if fields.keys() != layout.keys() or any(
+                fields[name].shape != (T, B, n) for name, (_, n) in layout.items()
+            ):
+                shapes = {name: tuple(f.shape) for name, f in fields.items()}
+                raise RuntimeError(f"meta fields {shapes} disagree with meta_layout {layout}")
+            meta = torch.cat([fields[name] for name in layout], dim=-1).to(i32)
             meta_bytes = meta.transpose(0, 1).contiguous().view(torch.uint8).reshape(B, T, -1)
             outputs = {"packed": torch.cat([main_data, meta_bytes], dim=-1)}
 

@@ -75,37 +75,7 @@ def _load() -> ctypes.CDLL:
         lib.mp3_total_bytes.restype = ctypes.c_uint32
         lib.mp3_total_bytes.argtypes = [ctypes.c_void_p]
         i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
-        i8p = np.ctypeslib.ndpointer(dtype=np.int8, flags="C_CONTIGUOUS")
         u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
-        lib.mp3_render_frames.restype = ctypes.c_int64
-        lib.mp3_render_frames.argtypes = [
-            ctypes.c_void_p,
-            ctypes.c_int,
-            i32p, i32p, i32p, i32p,  # bitrate_index, padding, mdb, slot
-            i32p, i32p, i32p, i32p,  # part23, big_values, gain, block_type
-            i32p, i32p, i32p, i32p,  # preflag, region0, region1, subblock_gain
-            i32p, i32p, i32p,        # scalefac_compress, table_select, count1table
-            i8p,                     # quantized
-            u8p, ctypes.c_int64,     # out, capacity
-            i32p,                    # frame_sizes_out
-            np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS"),
-        ]
-        lib.mp3_render_frames_packed.restype = ctypes.c_int64
-        lib.mp3_render_frames_packed.argtypes = [
-            ctypes.c_void_p,
-            ctypes.c_int,
-            i32p, i32p, i32p, i32p,  # bitrate_index, padding, mdb, slot
-            i32p, i32p, i32p, i32p,  # part23, big_values, gain, block_type
-            i32p, i32p, i32p, i32p,  # preflag, region0, region1, subblock_gain
-            i32p, i32p, i32p,        # scalefac_compress, table_select, count1table
-            i32p,                    # scfsi [F, ch]
-            i32p,                    # mode_ext [F]
-            u8p, ctypes.c_int,       # main_data, cap
-            i32p,                    # hb
-            u8p, ctypes.c_int64,     # out, capacity
-            i32p,                    # frame_sizes_out
-            np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS"),
-        ]
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.mp3_render_batch.restype = None
         lib.mp3_render_batch.argtypes = [
@@ -156,8 +126,11 @@ def render_batch(states, rows, counts, cap: int, frame_stride: int, layout, aren
 
 
 class NativeStreamRenderer:
-    """Per-stream native frame assembler (same contract as FrameAssembler,
-    array-driven interface)."""
+    """A stream's native render state: `handle` is what `render_batch` takes
+    for the stream, `flush_buffered` emits its held frames at the end, and
+    `frame_sizes`, `frame_count` and `total_bytes` are what it has emitted
+    (the Xing header's input). The bytes equal `io.framing.FrameAssembler`'s
+    on the same chunk outputs."""
 
     def __init__(self, options: MP3EncoderOptions):
         lib = _load()
@@ -182,19 +155,6 @@ class NativeStreamRenderer:
         )
         self.frame_sizes: list[int] = []
 
-    def _sideinfo_defaults(self, F: int, scalefac_compress, table_select, count1table):
-        """Compat-mode defaults for the spec-strict side-info fields:
-        scalefac_compress=0, table_select=(15,15,15), count1table_select=0
-        (the reference's hardcoded values)."""
-        G = self.options.n_granules * self.options.channels
-        if scalefac_compress is None:
-            scalefac_compress = np.zeros((F, G), dtype=np.int32)
-        if table_select is None:
-            table_select = np.full((F, G, 3), 15, dtype=np.int32)
-        if count1table is None:
-            count1table = np.zeros((F, G), dtype=np.int32)
-        return scalefac_compress, table_select, count1table
-
     def __del__(self):
         h = getattr(self, "_h", None)
         if h:
@@ -214,126 +174,6 @@ class NativeStreamRenderer:
     @property
     def total_bytes(self) -> int:
         return int(self._lib.mp3_total_bytes(self._h))
-
-    def render(
-        self,
-        bitrate_index: np.ndarray,  # [F]
-        padding: np.ndarray,
-        mdb: np.ndarray,
-        slot: np.ndarray,
-        part23: np.ndarray,  # [F, G]
-        big_values: np.ndarray,
-        gain: np.ndarray,
-        block_type: np.ndarray,
-        preflag: np.ndarray,
-        region0: np.ndarray,
-        region1: np.ndarray,
-        subblock_gain: np.ndarray,  # [F, G, 3]
-        quantized: np.ndarray,  # [F, G, 576] int8
-        scalefac_compress: np.ndarray = None,  # [F, G]
-        table_select: np.ndarray = None,  # [F, G, 3]
-        count1table: np.ndarray = None,  # [F, G]
-    ) -> bytes:
-        if self.options.spec_strict_entropy:
-            # The C++ pack_granule packs table-15 pairs only; it cannot
-            # produce the strict layout's per-region codes / count1 quads /
-            # scalefactor bits, so side info would contradict the bits.
-            # Strict streams flow through render_packed (device-packed
-            # main_data) or the Python FrameAssembler.
-            raise NotImplementedError(
-                "NativeStreamRenderer.render() packs the compat (table-15) "
-                "layout only; use render_packed for spec-strict options"
-            )
-        if self.options.iso_mode_ext:
-            raise NotImplementedError(
-                "render() writes the constant header mode_extension; "
-                "iso_mode_ext streams flow through render_packed (per-frame "
-                "mode_ext array)"
-            )
-        F = len(bitrate_index)
-        if F == 0:
-            return b""
-        scalefac_compress, table_select, count1table = self._sideinfo_defaults(
-            F, scalefac_compress, table_select, count1table
-        )
-        cap = int(slot.sum()) + F * 40 + 8192
-        out = np.empty(cap, dtype=np.uint8)
-        sizes = np.zeros(F, dtype=np.int32)
-        n_emitted = np.zeros(1, dtype=np.int32)
-
-        def c(a, dt=np.int32):
-            return np.ascontiguousarray(a, dtype=dt)
-
-        n = self._lib.mp3_render_frames(
-            self._h, F,
-            c(bitrate_index), c(padding), c(mdb), c(slot),
-            c(part23), c(big_values), c(gain), c(block_type),
-            c(preflag), c(region0), c(region1), c(subblock_gain),
-            c(scalefac_compress), c(table_select), c(count1table),
-            c(quantized, np.int8),
-            out, cap, sizes, n_emitted,
-        )
-        if n < 0:
-            raise RuntimeError("native render buffer overflow")
-        self.frame_sizes.extend(int(s) for s in sizes[: int(n_emitted[0])])
-        return out[:n].tobytes()
-
-    def render_packed(
-        self,
-        bitrate_index: np.ndarray,  # [F]
-        padding: np.ndarray,
-        mdb: np.ndarray,
-        slot: np.ndarray,
-        part23: np.ndarray,  # [F, G]
-        big_values: np.ndarray,
-        gain: np.ndarray,
-        block_type: np.ndarray,
-        preflag: np.ndarray,
-        region0: np.ndarray,
-        region1: np.ndarray,
-        subblock_gain: np.ndarray,  # [F, G, 3]
-        main_data: np.ndarray,  # [F, cap] uint8 (device-packed)
-        hb: np.ndarray,  # [F]
-        scalefac_compress: np.ndarray = None,  # [F, G]
-        table_select: np.ndarray = None,  # [F, G, 3]
-        count1table: np.ndarray = None,  # [F, G]
-        scfsi: np.ndarray = None,  # [F, ch] nibbles (options.scfsi)
-        mode_ext: np.ndarray = None,  # [F] per-frame header mode_extension
-    ) -> bytes:
-        F = len(bitrate_index)
-        if F == 0:
-            return b""
-        scalefac_compress, table_select, count1table = self._sideinfo_defaults(
-            F, scalefac_compress, table_select, count1table
-        )
-        if scfsi is None:
-            scfsi = np.zeros((F, self.options.channels), dtype=np.int32)
-        if mode_ext is None:
-            from ..tables import mode_bits as _mb
-
-            mode_ext = np.full(F, _mb(self.options.mode.value)[1], dtype=np.int32)
-        cap = main_data.shape[-1]
-        out_cap = int(slot.sum()) + F * 40 + 8192
-        out = np.empty(out_cap, dtype=np.uint8)
-        sizes = np.zeros(F, dtype=np.int32)
-        n_emitted = np.zeros(1, dtype=np.int32)
-
-        def c(a, dt=np.int32):
-            return np.ascontiguousarray(a, dtype=dt)
-
-        n = self._lib.mp3_render_frames_packed(
-            self._h, F,
-            c(bitrate_index), c(padding), c(mdb), c(slot),
-            c(part23), c(big_values), c(gain), c(block_type),
-            c(preflag), c(region0), c(region1), c(subblock_gain),
-            c(scalefac_compress), c(table_select), c(count1table),
-            c(scfsi), c(mode_ext),
-            c(main_data, np.uint8), cap, c(hb),
-            out, out_cap, sizes, n_emitted,
-        )
-        check_written(n)
-        self.frame_sizes.extend(int(s) for s in sizes[: int(n_emitted[0])])
-        return out[:n].tobytes()
 
     def flush_buffered(self) -> bytes:
         """Emit every still-buffered frame (depth-general drain)."""

@@ -6,12 +6,11 @@ batch-major [B, T, frame] chunks, the chunk program runs on the device, and
 the packed outputs render to bytes through the port's native renderer, one
 call a range of streams reading the packed host buffer in place
 (`swiftmp3_tpu_torch.native.lib.render_batch`, each stream's state a
-`NativeStreamRenderer`), or with `use_native=False` through the Python
-`FrameAssembler`, the behavioural reference. `reset_lanes` recycles
-finished lanes for new streams (the serving layer,
-`parallel.pool.StreamPool`). Pinned host buffers with
-non-blocking copies stand in for the JAX version's `device_put` and
-`copy_to_host_async`, so uploads and downloads overlap other work.
+`NativeStreamRenderer`). `reset_lanes` recycles finished lanes for new
+streams (the serving layer, `parallel.pool.StreamPool`). Pinned host
+buffers with non-blocking copies stand in for the JAX version's
+`device_put` and `copy_to_host_async`, so uploads and downloads overlap
+other work.
 
 Given a mesh (`parallel.mesh`), the batch is cut into one contiguous span a
 mesh position; each position holds its rows' carry on its own device and
@@ -35,12 +34,9 @@ import numpy as np
 import torch
 
 from ..encoder import GAPLESS_DECODER_DELAY, GAPLESS_ENCODER_DELAY
-from ..io.framing import FrameAssembler
 from ..io.id3 import build_id3_tag
 from ..io.xing import build_xing_header
 from ..models.pipeline import (
-    fetch_outputs,
-    frame_results_from_outputs,
     init_carry,
     main_data_cap,
     make_chunk_fn,
@@ -72,10 +68,9 @@ class BatchEncoder:
     a step stay readable until `drain` is called on them; several steps may
     be in flight.
 
-    Host rendering runs the native C++ renderer (a failed build raises), or
-    with use_native=False the Python FrameAssembler; both give the same
-    bytes. The native render makes one call a range of rows, at most
-    render_threads (default: the cores, at most 8) ranges in parallel."""
+    Host rendering runs the native C++ renderer (a failed build raises): one
+    call a range of rows, at most render_threads (default: the cores, at
+    most 8) ranges in parallel."""
 
     def __init__(
         self,
@@ -83,7 +78,6 @@ class BatchEncoder:
         batch: int,
         frames_per_step: int,
         device="cuda",
-        use_native: bool = True,
         render_threads: int | None = None,
         mesh=None,
     ):
@@ -112,9 +106,7 @@ class BatchEncoder:
         self._render_threads = render_threads
         self._carries = [init_carry(hi - lo, options, dev) for dev, lo, hi in spans]
         self._init = None  # the fresh carries reset_lanes selects from, built once
-        self.use_native = use_native
-        # each stream's renderer: NativeStreamRenderer, or FrameAssembler
-        self.renderers = [self._renderer() for _ in range(rows)]
+        self.renderers = [NativeStreamRenderer(options) for _ in range(rows)]
         # the packed output's frame as the native render reads it: main_data
         # to the cap, then the meta fields' words
         layout = meta_layout(options)
@@ -136,10 +128,6 @@ class BatchEncoder:
         return {
             k: torch.cat([c[k].to(first[k].device) for c in self._carries]) for k in first
         }
-
-    def _renderer(self):
-        renderer = NativeStreamRenderer if self.use_native else FrameAssembler
-        return renderer(self.options)
 
     def close(self) -> None:
         """Release the render thread pool (idempotent; drain then renders
@@ -235,7 +223,7 @@ class BatchEncoder:
                 for key, v in self._carries[k].items()
             }
         for b in np.flatnonzero(mask).tolist():
-            self.renderers[b] = self._renderer()
+            self.renderers[b] = NativeStreamRenderer(self.options)
 
     def drain(self, outs: dict, valid: np.ndarray) -> List[bytes]:
         """Render one chunk's outputs to bytes per stream (ranges of streams
@@ -259,11 +247,9 @@ class BatchEncoder:
         (`render.busy_ns`, summed over the pool's threads)."""
         traced = profiling.enabled()
         if traced:
-            threads = self._render_threads if self._pool is not None and self.use_native else 1
+            threads = self._render_threads if self._pool is not None else 1
             profiling.count("render.threads", threads)
         valid = np.asarray(valid)
-        if not self.use_native:
-            return self._render_python(parts, valid, traced)
         B, T = valid.shape
         if B != len(self.renderers):
             raise ValueError(f"valid has {B} rows; the encoder renders {len(self.renderers)}")
@@ -312,23 +298,6 @@ class BatchEncoder:
             r.frame_sizes.extend(sizes[b, : emitted[b]].tolist())
             out.append(arena[b, : written[b]].tobytes())
         return out
-
-    def _render_python(self, parts: list, valid: np.ndarray, traced: bool) -> List[bytes]:
-        """The use_native=False render: the FrameAssembler a frame at a time
-        (`render.busy_ns` its whole time)."""
-        packed = parts[0]["packed"] if len(parts) == 1 else torch.cat([p["packed"] for p in parts])
-        outs = fetch_outputs({"packed": packed}, self.options)
-        B = valid.shape[0]
-        t0 = time.perf_counter_ns()
-        emitted = [bytearray() for _ in range(B)]
-        for t in range(valid.shape[1]):
-            for b in range(B):
-                if valid[b, t]:
-                    fr = frame_results_from_outputs(outs, self.options, t, b)
-                    emitted[b] += self.renderers[b].push(fr)
-        if traced:
-            profiling.count("render.busy_ns", time.perf_counter_ns() - t0)
-        return [bytes(e) for e in emitted]
 
     def flush(self) -> List[bytes]:
         return [r.flush_buffered() for r in self.renderers]

@@ -145,7 +145,6 @@ class StreamPool:
         lanes: int = 8,
         frames_per_step: int = 4,
         device="cuda",
-        use_native: bool = True,
         pipelined: bool = True,
         mesh=None,
     ):
@@ -153,9 +152,7 @@ class StreamPool:
         self.lanes = lanes
         self.T = frames_per_step
         self.pipelined = pipelined
-        self.enc = BatchEncoder(
-            self.options, lanes, frames_per_step, device, use_native=use_native, mesh=mesh
-        )
+        self.enc = BatchEncoder(self.options, lanes, frames_per_step, device, mesh=mesh)
         self._streams: Dict[int, _Stream] = {}
         self._lane_owner: List[Optional[int]] = [None] * lanes
         self._waiting: List[int] = []  # sids with no lane yet (FIFO)

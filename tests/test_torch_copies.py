@@ -30,11 +30,11 @@ import torch
 import swiftmp3_tpu.native as jnative
 import swiftmp3_tpu.options as jopt
 import swiftmp3_tpu.tables as jtables
-import swiftmp3_tpu_torch.native as tnative
 import swiftmp3_tpu_torch.native.lib as tnative_lib
 import swiftmp3_tpu_torch.options as topt
 import swiftmp3_tpu_torch.tables as ttables
 from swiftmp3_tpu_torch.models import pipeline as tpipe
+from swiftmp3_tpu_torch.parallel import batch as tbatch
 
 from .fixture_lib import FIXTURES
 
@@ -340,8 +340,10 @@ def test_options_copy_agrees_field_by_field(case):
 
 
 def test_native_renderers_render_equal_bytes():
-    """The port's renderer (built into swiftmp3_tpu_torch/_build/) and the
-    reference's render one chunk program's outputs to the same bytes."""
+    """The port's batched render (built into swiftmp3_tpu_torch/_build/,
+    through `BatchEncoder.drain`) and the reference's per-stream
+    `render_packed` render one chunk program's outputs to the same bytes
+    and frame sizes."""
     kw = dict(mode="joint_stereo", vbr=True, quality=4, crc_protected=True)
     o, jo = topt.MP3EncoderOptions(**kw), jopt.MP3EncoderOptions(**kw)
     B, T = 2, 5
@@ -349,12 +351,10 @@ def test_native_renderers_render_equal_bytes():
     pcm = (rng.standard_normal((B, T, 2304)) * 0.2).astype(np.float32)
     valid = np.ones((B, T), bool)
     valid[1, 3:] = False
-    cpu = torch.device("cpu")
-    _, outs = tpipe.make_chunk_fn(o)(
-        tpipe.init_carry(B, o, cpu), torch.from_numpy(pcm),
-        torch.zeros(B, T, dtype=torch.bool), torch.from_numpy(valid),
-    )
-    outs = tpipe.fetch_outputs(outs, o)
+    enc = tbatch.BatchEncoder(o, B, T, "cpu", render_threads=1)
+    step = enc.step(pcm, np.zeros((B, T), bool), valid)
+    got = [d + f for d, f in zip(enc.drain(step, valid), enc.flush())]
+    outs = tpipe.fetch_outputs(step, o)
     for b in range(B):
         F = int(valid[b].sum())
         fields = [outs[k][b, :F] for k in (
@@ -364,11 +364,10 @@ def test_native_renderers_render_equal_bytes():
         extra = {k: outs[k][b, :F] for k in (
             "table_select", "count1table", "scalefac_compress", "scfsi", "mode_ext",
         )}
-        r_t, r_j = tnative.NativeStreamRenderer(o), jnative.NativeStreamRenderer(jo)
-        got = r_t.render_packed(*fields, **extra) + r_t.flush_buffered()
+        r_j = jnative.NativeStreamRenderer(jo)
         want = r_j.render_packed(*fields, **extra) + r_j.flush_buffered()
-        assert len(want) > 0 and got == want
-        assert r_t.frame_sizes == r_j.frame_sizes
+        assert len(want) > 0 and got[b] == want
+        assert enc.renderers[b].frame_sizes == r_j.frame_sizes
 
 
 @pytest.mark.parametrize("how", ["missing", "failing"])

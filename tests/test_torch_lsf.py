@@ -583,10 +583,10 @@ def test_lsf_strict_step_emits_the_spans_of_an_mpeg1_strict_step():
     [(16000, 48, "mono", "hq"), (22050, 64, "joint_stereo", "hq"),
      (8000, 32, "mono", "spec_strict"), (24000, 96, "stereo", "spec_strict")],
 )
-def test_native_matches_python_lsf(sr, kbps, mode, preset, monkeypatch):
-    """encode_batch through the port's native renderer and through its
-    FrameAssembler give the same LSF bytes (one-granule side info, 8-bit
-    main_data_begin, 9-bit scalefac_compress, MPEG-2 and 2.5 headers;
+def test_native_matches_python_lsf(sr, kbps, mode, preset):
+    """encode_batch through the port's native renderer gives the LSF bytes
+    of its FrameAssembler over the same chunks (one-granule side info,
+    8-bit main_data_begin, 9-bit scalefac_compress, MPEG-2 and 2.5 headers;
     tests/test_native.py:99)."""
     rng = np.random.default_rng(sr % 101)
     base = [
@@ -595,9 +595,16 @@ def test_native_matches_python_lsf(sr, kbps, mode, preset, monkeypatch):
     ]
     streams = [np.stack([s, 0.8 * s], axis=-1).reshape(-1) if mode != "mono" else s for s in base]
     o = getattr(MP3EncoderOptions, preset)(mode=mode, bitrate_kbps=kbps, sample_rate=sr)
-    outs = []
-    for native in (True, False):
-        monkeypatch.setattr(tbatch, "BatchEncoder", functools.partial(BatchEncoder, use_native=native))
-        outs.append(encode_batch(o, streams, CPU, frames_per_step=4))
-    assert outs[0] == outs[1]
-    assert all(ti.walk_frames(d)[0]["samples"] == 576 for d in outs[0])
+    native = encode_batch(o, streams, CPU, frames_per_step=4)
+    chunks = tbatch._Chunks(o, streams, len(streams), 4)
+    enc = BatchEncoder(o, len(streams), 4, CPU, render_threads=1)
+    ref = ti.AssemblerRender(o, len(streams))
+    python = [bytearray() for _ in streams]
+    for start in range(0, chunks.frames, 4):
+        pcm, final, valid, la = chunks.build(start, chunks.frames)
+        for b, chunk in enumerate(ref.drain(enc.step(pcm, final, valid, la), valid)):
+            python[b] += chunk
+    for b, tail in enumerate(ref.flush()):
+        python[b] += tail
+    assert native == [bytes(x) for x in python]
+    assert all(ti.walk_frames(d)[0]["samples"] == 576 for d in native)

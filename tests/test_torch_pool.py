@@ -1,6 +1,6 @@
 """The port's serving and file entry points on the CPU: `StreamPool`,
-`BatchEncoder.reset_lanes`, the FrameAssembler render path, `encode_corpus`
-and the command line.
+`BatchEncoder.reset_lanes`, the native render against the FrameAssembler
+reference, `encode_corpus` and the command line.
 
 - each scenario of tests/test_pool.py, the sequenced hq pool of
   tests/test_window_sequencing.py and the gapless pool of
@@ -8,7 +8,8 @@ and the command line.
   port's sessions' streams (one float stack, so no flip is allowed),
   pipelined and synchronous;
 - reset_lanes leaves unmasked lanes bit for bit and gives masked ones
-  init_carry's state; use_native=False renders the native renderer's bytes;
+  init_carry's state; the native render gives the per-stream
+  FrameAssembler's bytes (`tests.torch_inputs.AssemblerRender`);
 - encode_corpus equals ID3 + Xing + session bytes, and the JAX package's
   frozen encode_corpus file; the command line's file equals the port's
   session's and the JAX command line's frozen file for the same WAV;
@@ -391,8 +392,8 @@ def test_reset_lanes(preset):
 
 
 def test_frame_assembler_path_matches_native():
-    """use_native=False renders through the Python FrameAssembler: the same
-    bytes as the native renderer, in steps and at the flush, at depth 3."""
+    """The native render gives the Python FrameAssembler's bytes, in steps
+    and at the flush, at depth 3."""
     o = MP3EncoderOptions.hq(mode="mono", bitrate_kbps=96, reservoir_depth=3)
     pcm = ti.sparse_transients(8 * 1152).reshape(2, 4, 1152)
     la = np.zeros((2, 4, 576), dtype=np.float32)
@@ -400,20 +401,25 @@ def test_frame_assembler_path_matches_native():
     valid = np.ones((2, 4), dtype=bool)
     valid[1, 3] = False
     final = np.zeros((2, 4), dtype=bool)
-    out = {}
-    for native in (True, False):
-        enc = BatchEncoder(o, 2, 4, CPU, use_native=native, render_threads=1)
-        assert all(isinstance(r, NativeStreamRenderer) == native for r in enc.renderers)
-        data = enc.drain(enc.step(pcm, final, valid, la), valid)
-        out[native] = [d + f for d, f in zip(data, enc.flush())]
-    assert out[True] == out[False] and all(out[True])
+    enc = BatchEncoder(o, 2, 4, CPU, render_threads=1)
+    assert all(isinstance(r, NativeStreamRenderer) for r in enc.renderers)
+    ref = ti.AssemblerRender(o, 2)
+    outs = enc.step(pcm, final, valid, la)
+    data = enc.drain(outs, valid)
+    assert data == ref.drain(outs, valid)
+    tails = enc.flush()
+    assert tails == ref.flush()
+    assert all(d + t for d, t in zip(data, tails))
 
 
 def test_pool_without_native_matches_sessions():
+    """The pool, whose one render is the native one, gives the sessions'
+    streams and Xing headers."""
     opts = MP3EncoderOptions(mode="joint_stereo", bitrate_kbps=112)
     rng = np.random.default_rng(10)
     sigs = [_sig(rng, 2 * 1152 + 33 * i, 2) for i in range(3)]
-    pool = _pool(opts, lanes=2, frames_per_step=2, use_native=False)
+    pool = _pool(opts, lanes=2, frames_per_step=2)
+    assert all(isinstance(r, NativeStreamRenderer) for r in pool.enc.renderers)
     sids = [pool.submit() for _ in sigs]
     for sid, sig in zip(sids, sigs):
         pool.feed(sid, sig)

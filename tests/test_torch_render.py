@@ -6,11 +6,11 @@ reading the packed host buffer in place.
   mode_extension, scfsi), lsf_strict64 and CRC (`iso_crc`, reservoir depth
   3) configurations, with ragged frame counts, an empty stream, a row past
   the streams, a lane recycled between drains and the mesh's two CPU
-  positions, the batched render gives per-stream `render_packed`'s and the
-  `FrameAssembler`'s bytes, frame sizes, frame counts and byte counts.
+  positions, the batched render gives the per-stream `FrameAssembler`
+  reference's bytes, frame sizes, frame counts and byte counts
+  (`tests.torch_inputs.AssemblerRender`).
 - A drain makes at most render_threads native calls and counts their time.
-- A frame past the pack's cap and a too small output arena raise as
-  `render_packed` does.
+- A frame past the pack's cap and a too small output arena raise.
 
 Nothing here imports JAX.
 """
@@ -22,11 +22,12 @@ import pytest
 import torch
 
 from swiftmp3_tpu_torch import MP3EncoderOptions, Mode
-from swiftmp3_tpu_torch.models.pipeline import fetch_outputs, main_data_cap, meta_layout
-from swiftmp3_tpu_torch.native import NativeStreamRenderer
+from swiftmp3_tpu_torch.models.pipeline import main_data_cap, meta_layout
 from swiftmp3_tpu_torch.parallel.batch import BatchEncoder, _Chunks
 from swiftmp3_tpu_torch.parallel.mesh import make_mesh
 from swiftmp3_tpu_torch.utils import profiling
+
+from .torch_inputs import AssemblerRender
 
 torch.set_num_threads(1)
 
@@ -39,9 +40,6 @@ CONFIGS = {
     "crc_iso_depth3": dict(mode=Mode.JOINT_STEREO, bitrate_kbps=96, crc_protected=True, iso_crc=True,
                            reservoir_mode="aligned", reservoir_depth=3),
 }
-PACKED_FIELDS = ("bitrate_index", "padding", "mdb", "slot", "part23", "big_values", "gain", "block_type",
-                 "preflag", "region0", "region1", "subblock_gain", "main_data", "hb")
-PACKED_EXTRA = ("table_select", "count1table", "scalefac_compress", "scfsi", "mode_ext")
 
 
 def _options(name: str) -> MP3EncoderOptions:
@@ -60,17 +58,6 @@ def _streams(o: MP3EncoderOptions) -> list:
     return [(rng.standard_normal(int(n * fl)) * 5000).astype(np.int16) for n in (7.5, 5, 0, 3, 6.3)]
 
 
-def _render_solo(solo: list, packed: torch.Tensor, valid: np.ndarray, o: MP3EncoderOptions) -> list:
-    """Each row rendered on its own through render_packed."""
-    f = fetch_outputs({"packed": packed}, o)
-    out = []
-    for b, r in enumerate(solo):
-        F = int(valid[b].sum())
-        out.append(r.render_packed(*(f[k][b, :F] for k in PACKED_FIELDS),
-                                   **{k: f[k][b, :F] for k in PACKED_EXTRA}))
-    return out
-
-
 @pytest.mark.parametrize("where", ["one_device", "mesh2"])
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_batched_render_equals_per_stream_and_python_renders(config, where):
@@ -79,42 +66,33 @@ def test_batched_render_equals_per_stream_and_python_renders(config, where):
     assert chunks.frames > T  # two drains at least
     mesh = make_mesh(["cpu", "cpu"]) if where == "mesh2" else None
     enc = BatchEncoder(o, ROWS, T, "cpu", render_threads=4, mesh=mesh)
-    python = BatchEncoder(o, ROWS, T, "cpu", use_native=False)
-    solo = [NativeStreamRenderer(o) for _ in range(ROWS)]
-    got = {k: [bytearray() for _ in range(ROWS)] for k in ("batch", "solo", "python")}
+    ref = AssemblerRender(o, ROWS)
+    got = {k: [bytearray() for _ in range(ROWS)] for k in ("batch", "python")}
     try:
         for i, start in enumerate(range(0, chunks.frames, T)):
             pcm, final, valid, la = chunks.build(start, chunks.frames)
             if i == 1:  # lane 1 takes a new stream between drains, as StreamPool recycles it
                 lane = np.arange(ROWS) == 1
                 enc.reset_lanes(lane)
-                python.reset_lanes(lane)
-                solo[1] = NativeStreamRenderer(o)
+                ref.reset_lanes(lane)
             outs = enc.step(pcm, final, valid, la)
             parts = outs["parts"] if "parts" in outs else [outs]
             assert len(parts) == (2 if mesh else 1)
-            packed = torch.cat([p["packed"] for p in parts])
-            rendered = {
-                "batch": enc.drain(outs, valid),
-                "python": python.drain({"packed": packed}, valid),
-                "solo": _render_solo(solo, packed, valid, o),
-            }
+            rendered = {"batch": enc.drain(outs, valid), "python": ref.drain(outs, valid)}
             for k, chunk in rendered.items():
                 for b in range(ROWS):
                     got[k][b] += chunk[b]
-        for k, renderers in (("batch", enc.renderers), ("python", python.renderers), ("solo", solo)):
-            for b, r in enumerate(renderers):
-                got[k][b] += r.flush_buffered()
+        for k, tails in (("batch", enc.flush()), ("python", ref.flush())):
+            for b, tail in enumerate(tails):
+                got[k][b] += tail
     finally:
         enc.close()
-        python.close()
-    assert got["batch"] == got["solo"] == got["python"]
+    assert got["batch"] == got["python"]
     assert [len(x) > 0 for x in got["batch"]] == [True, True, False, True, True, False]
-    for b in range(ROWS):
-        sizes = [r[b].frame_sizes for r in (enc.renderers, python.renderers, solo)]
-        assert sizes[0] == sizes[1] == sizes[2] and sum(sizes[0]) == enc.renderers[b].total_bytes
+    for b, (r, want) in enumerate(zip(enc.renderers, ref.renderers)):
+        assert r.frame_sizes == want.frame_sizes and sum(r.frame_sizes) == r.total_bytes
         for name in ("frame_count", "total_bytes"):
-            assert getattr(enc.renderers[b], name) == getattr(python.renderers[b], name) == getattr(solo[b], name)
+            assert getattr(r, name) == getattr(want, name)
 
 
 def _compat_step(rows: int = ROWS, **kw):
@@ -160,9 +138,6 @@ def test_a_faulty_drain_raises(fault):
             packed[3, 1, cap + 4 * word : cap + 4 * word + 4] = torch.from_numpy(
                 np.array([8 * cap + 8], dtype=np.int32).view(np.uint8))
             match = "device pack cap exceeded"
-            solo = NativeStreamRenderer(o)
-            with pytest.raises(RuntimeError, match=match):
-                _render_solo([solo] * ROWS, packed, valid, o)
         elif fault == "small_arena":
             enc._frame_bytes = 16  # an arena row of 64 bytes: three frames emitted do not fit
             match = "native render buffer overflow"

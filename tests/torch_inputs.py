@@ -1,5 +1,6 @@
 """Inputs shared by the port's tests and `chip_smoke.py` (numpy only, made
-from seeds; `strict_pack_input` alone runs the port, imported inside it).
+from seeds; `strict_pack_input` and `AssemblerRender` run the port,
+imported inside them).
 
 Besides the kernel inputs, this module holds numpy-only copies of the
 reference tests' signal makers and option rows, so that code which must not
@@ -1158,3 +1159,40 @@ def walk_frames(data: bytes, free_kbps: int | None = None) -> list[dict]:
     if i != len(data):
         raise ValueError(f"trailing bytes: walked {i} of {len(data)}")
     return frames
+
+
+class AssemblerRender:
+    """The reference of `BatchEncoder.drain`'s native render: each row's
+    frames through its own `FrameAssembler`, a frame at a time, from the
+    chunk program's packed output (`fetch_outputs`,
+    `frame_results_from_outputs`). The assemblers live across drains;
+    `reset_lanes` gives the masked rows new ones, as the encoder's does."""
+
+    def __init__(self, options, rows: int):
+        from swiftmp3_tpu_torch.io.framing import FrameAssembler
+
+        self.options = options
+        self._new = lambda: FrameAssembler(options)
+        self.renderers = [self._new() for _ in range(rows)]
+
+    def reset_lanes(self, lanes) -> None:
+        for b in np.flatnonzero(lanes).tolist():
+            self.renderers[b] = self._new()
+
+    def drain(self, outs: dict, valid: np.ndarray) -> list[bytes]:
+        """One chunk's bytes a row; `outs` is what `BatchEncoder.step`
+        returns (on the CPU)."""
+        from swiftmp3_tpu_torch.models.pipeline import fetch_outputs, frame_results_from_outputs
+
+        parts = outs["parts"] if "parts" in outs else [outs]
+        packed = np.concatenate([np.asarray(p["packed"]) for p in parts])
+        fields = fetch_outputs({"packed": packed}, self.options)
+        out = [bytearray() for _ in self.renderers]
+        for t in range(valid.shape[1]):
+            for b, r in enumerate(self.renderers):
+                if valid[b, t]:
+                    out[b] += r.push(frame_results_from_outputs(fields, self.options, t, b))
+        return [bytes(x) for x in out]
+
+    def flush(self) -> list[bytes]:
+        return [r.flush_buffered() for r in self.renderers]
