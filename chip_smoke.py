@@ -46,7 +46,10 @@ it runs are the port's copies). Phases:
      the cap), with its time, bound and share; K4's two scans once a step on
      each strict and hq path, and ([K4 hq]) both against their plain
      versions, bit-exact, on the hq joint path's first scan inputs, with
-     their times and bounds;
+     their times and bounds; K5 (the strict sweep) once a step on each
+     strict and hq path and never on the compat paths, and ([K5 hq]) K5
+     against its plain version, bit-exact, on the hq joint path's first
+     strict-sweep input (131 072 granules), with its time and bound;
   4d. serving ([serve]): a StreamPool at bench.py's serving configuration
      (128 kbps CBR stereo 44.1 kHz, 64 lanes x 32 frames a step), unique
      int16 noise feeds (bench.py's: seed 7, normal x 4000), one warm step
@@ -95,7 +98,9 @@ it runs are the port's copies). Phases:
      linbits at 44.1 kHz) one step at the same width; every frame walk
      checked (MPEG-2 headers and 576 samples a frame; free format: bitrate
      index 0, 489 or 490 bytes); then K1 bit-exact on the lsf iso path's
-     sweep input (65 536 granules, ISO law) and K2 bit-exact on each path's
+     sweep input (65 536 granules, ISO law), ([K5 lsf strict]) K5
+     bit-exact on the lsf strict path's strict-sweep input (65 536
+     granules) with its time and bound, and K2 bit-exact on each path's
      pack input (P = 936, 1044, 576, 2088) and past the cap;
   4k. the mesh ([mesh]): encode_batch of the main path's 256 streams x 256
      frames (the two steps of bench audio joined, 128 frames a step) over
@@ -168,8 +173,10 @@ it runs are the port's copies). Phases:
      CPU filterbank and MDCT;
   6. a `kernels` JSON line (K1 and K2 as the compat main path, the serving
      pool, the LSF and free-format paths, the mesh runs, the two processes
-     and the graft entry launched them, K3 as the filterbank stage did), the card
-     line, and the result line. Each phase's wall time is printed
+     and the graft entry launched them, K3 as the filterbank stage did, K4
+     as the main, strict, hq, serving, LSF and mesh paths did, K5 as the
+     strict, hq, dc, IS, LSF and mesh paths did, read at the hq path's
+     input), the card line, and the result line. Each phase's wall time is printed
      ([time]).
 
 Each kernel's bound_ms is the larger of its bytes (inputs read once, outputs
@@ -407,19 +414,20 @@ class _CpuFilterbank:
 
 class _FirstInputs:
     """Within it, the wrappers kernels.rate_sweep, kernels.pack,
-    kernels.rate_loop_scan and kernels.placement_scan keep a copy of their
-    first call's inputs, `sweep` (mag, gstart, iso), `pack` (chunks, nbits,
-    cap), `scan` (config, carry, keyword inputs) and `placement` (config,
-    carry, hb, slot, final, valid), and launch and count as before."""
+    kernels.rate_loop_scan, kernels.placement_scan and kernels.strict_sweep
+    keep a copy of their first call's inputs, `sweep` (mag, gstart, iso),
+    `pack` (chunks, nbits, cap), `scan` (config, carry, keyword inputs),
+    `placement` (config, carry, hb, slot, final, valid) and `strict`
+    (arguments, keyword options), and launch and count as before."""
 
     def __enter__(self):
         from swiftmp3_tpu_torch.ops import kernels
 
         self.kernels = kernels
         self.saved = (kernels.rate_sweep, kernels.pack, kernels.rate_loop_scan,
-                      kernels.placement_scan)
-        self.sweep = self.pack = self.scan = self.placement = None
-        sweep, pack, scan, placement = self.saved
+                      kernels.placement_scan, kernels.strict_sweep)
+        self.sweep = self.pack = self.scan = self.placement = self.strict = None
+        sweep, pack, scan, placement, strict = self.saved
 
         def clone(x):
             if isinstance(x, dict):
@@ -447,13 +455,19 @@ class _FirstInputs:
                 self.placement = (cfg, clone(carry), *clone(list(args)))
             return placement(cfg, carry, *args)
 
+        def rec_strict(*args, **kwargs):
+            if self.strict is None:
+                self.strict = ([clone(a) for a in args], dict(kwargs))
+            return strict(*args, **kwargs)
+
         kernels.rate_sweep, kernels.pack = rec_sweep, rec_pack
         kernels.rate_loop_scan, kernels.placement_scan = rec_scan, rec_placement
+        kernels.strict_sweep = rec_strict
         return self
 
     def __exit__(self, *exc):
         (self.kernels.rate_sweep, self.kernels.pack, self.kernels.rate_loop_scan,
-         self.kernels.placement_scan) = self.saved
+         self.kernels.placement_scan, self.kernels.strict_sweep) = self.saved
 
 
 def _sweep_bound(n: int) -> tuple[float, str]:
@@ -461,6 +475,15 @@ def _sweep_bound(n: int) -> tuple[float, str]:
     per granule and gain 576 x (multiply, add, floor, min, convert) + 288 x
     (index, lookup, add, max)."""
     return _bound(4 * (576 * n + n + 2 * 20 * n), n * 20 * (576 * 5 + 288 * 4))
+
+
+def _strict_sweep_bound(n: int) -> tuple[float, str]:
+    """K5's bound over n granules: read mag, gstart, is_long, b0_switch and
+    part2, write the [n, 20] bits; per granule and gain 576 x (multiply,
+    add, min, floor, the q > 0 and q > 1 line maxima) + 288 x (the bv test,
+    pair maximum, region maximum, table index, lookup, masked add) + 144 x
+    (pattern, popcount, lookup, two masked adds) lane operations."""
+    return _bound(4 * (576 * n + 3 * n + 20 * n) + n, n * 20 * (576 * 6 + 288 * 6 + 144 * 5))
 
 
 def _pack_bound(nbits, cap: int) -> tuple[float, str, float]:
@@ -512,6 +535,55 @@ def _check_sweep(sweep_input, what: str, card: str) -> None:
           f"({'iso' if iso else 'compat'} law), {card}: "
           f"{_shares(ms, device_ms, host, bound_ms)}, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+
+
+def _k5_launches(options, steps: int) -> int:
+    """K5's launches in `steps` chunk steps under `options`: one a strict
+    sweep, 1 + dc_passes a step under distortion control, none off the
+    strict entropy layout."""
+    if not options.spec_strict_entropy:
+        return 0
+    return steps * (1 + options.dc_passes * options.distortion_control_active)
+
+
+def _expect_k5(launches: dict, options, steps: int, what: str) -> int:
+    """K5's launches in a run read around it, held to _k5_launches."""
+    want = _k5_launches(options, steps)
+    if launches["strict_sweep"] != want:
+        raise AssertionError(f"the {what} path launched strict_sweep {launches['strict_sweep']} "
+                             f"times in {steps} steps, want {want}")
+    return want
+
+
+def _check_strict_sweep(strict_input, what: str, card: str) -> dict:
+    """K5 against its plain version, bit for bit, on a path's own first
+    strict-sweep input at full width; its time as events, device-only and
+    host readings, its plain version's time, and its bound."""
+    import torch
+
+    from swiftmp3_tpu_torch.ops import kernels
+    from tools.torch_profile_step import cuda_ms
+
+    args, kw = strict_input
+    n = args[1].numel()
+    bits = kernels.strict_sweep(*args, **kw)
+    torch.cuda.synchronize()
+    plain = kernels.strict_sweep_plain(*args, **kw)
+    if not torch.equal(bits, plain):
+        raise AssertionError(f"[K5 {what}] strict_sweep disagrees with its plain version on "
+                             f"{int((bits != plain).any(dim=-1).sum())} of {n} granules")
+    ms, device_ms, host = _readings(lambda: kernels.strict_sweep(*args, **kw))
+    plain_ms = cuda_ms(lambda: kernels.strict_sweep_plain(*args, **kw), reps=3, warmup=1)
+    bound_ms, bound_by = _strict_sweep_bound(n)
+    flags = [k for k in ("count1_coding", "region_table_select", "linbits") if kw[k]]
+    print(f"[K5 {what}] strict_sweep bit-exact on the {what} path's first input N={n} "
+          f"{tuple(args[1].shape)} ({', '.join(flags) or 'no flags'}, {kw['sample_rate']} Hz, "
+          f"b0_switch {'set' if args[4] is not None else 'none'}, part2 "
+          f"{'set' if args[5] is not None else 'none'}), {card}: "
+          f"{_shares(ms, device_ms, host, bound_ms)}, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "device_ms": device_ms, "host_us": host}
 
 
 def _tensor_bytes(*groups) -> int:
@@ -893,10 +965,11 @@ def _drive(options, audio, steps: int):
     return streams, step_ms, wall_s, launches, first
 
 
-def _hq_dc(mono_audio, card: str) -> None:
+def _hq_dc(mono_audio, card: str) -> int:
     """Phase 4h: distortion control at full width (2 steps), the flag-off
     encode of the same audio (2 steps; the bytes must differ), one step at
-    the depth knobs; K2 on the dc path's pack input."""
+    the depth knobs; K2 on the dc path's pack input. Returns K5's launches
+    in the three runs."""
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
     from tests.torch_inputs import B_MAIN, DC_IS_OPTIONS, T_MAIN, dc_is_options
 
@@ -904,11 +977,13 @@ def _hq_dc(mono_audio, card: str) -> None:
     dc_off = MP3EncoderOptions.hq(mode="mono", bitrate_kbps=128, sample_rate=44100, scfsi=False)
     audio_s = B_MAIN * T_MAIN * 1152 / dc_opts.sample_rate
     runs = {}
+    k5 = 0
     for label, o, steps in (("off", dc_off, STEPS_DC), ("dc", dc_opts, STEPS_DC),
                             ("dc3p", dc_is_options("hq_dc3p_mono128", MP3EncoderOptions), 1)):
         d_streams, d_step_ms, _, d_launches, d_first = _drive(o, mono_audio, steps)
         if d_launches["pack"] < steps:
             raise AssertionError(f"the hq dc path ({label}) launched pack {d_launches['pack']} times")
+        k5 += _expect_k5(d_launches, o, steps, f"hq dc ({label})")
         _check_walks(d_streams, steps * T_MAIN, o)
         runs[label] = (d_streams, d_step_ms, d_launches)
         if label == "dc":
@@ -933,13 +1008,14 @@ def _hq_dc(mono_audio, card: str) -> None:
     del runs
     if _check_pack(dc_pack, "hq dc", card) == 0:
         raise AssertionError("no frame of the hq dc pack check ran past the cap")
+    return k5
 
 
 def _hq_is(card: str) -> tuple:
     """Phase 4i: intensity stereo at full width on panned two-tone audio (2
     steps), some frames emitting intensity; K2 on the IS path's pack
-    input. Returns (options, audio, streams) of the first DECODE_ROWS rows
-    for [decode]."""
+    input. Returns ((options, audio, streams) of the first DECODE_ROWS rows
+    for [decode], K5's launches)."""
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
     from tests.torch_inputs import (
         B_MAIN,
@@ -957,6 +1033,7 @@ def _hq_is(card: str) -> tuple:
     i_streams, i_step_ms, i_wall_s, i_launches, i_first = _drive(is_opts, is_audio, STEPS_IS)
     if i_launches["pack"] < STEPS_IS:
         raise AssertionError(f"the hq is path launched pack {i_launches['pack']} times")
+    k5 = _expect_k5(i_launches, is_opts, STEPS_IS, "hq is")
     _check_walks(i_streams, STEPS_IS * T_MAIN, is_opts)
     emit = sum(f["mode_extension"] == 1 for d in i_streams for f in walk_frames(bytes(d)))
     if emit == 0:
@@ -975,7 +1052,7 @@ def _hq_is(card: str) -> tuple:
     # frames past the cap
     if _check_pack(i_first.pack, "hq is", card, repeat=8, frames=4096) == 0:
         raise AssertionError("no frame of the hq is pack check ran past the cap")
-    return rows
+    return rows, k5
 
 
 def _parity_dc_is() -> None:
@@ -1024,7 +1101,8 @@ def _lsf(mono_audio, card: str) -> tuple:
     rates, STEPS_LSF steps each) and free format ([free format]: one step of
     the main bench audio's left channel); every frame walk checked, step
     times printed; K1 against its plain version on the lsf iso path's sweep
-    input, K2 on each path's pack input and on its slots three times over
+    input, K5 on the lsf strict path's ([K5 lsf strict]), K2 on each path's
+    pack input and on its slots three times over
     (past the cap). Returns (each path's launch counts, the [lsf hq] path's
     options, audio and streams of the first DECODE_ROWS rows for
     [decode])."""
@@ -1049,6 +1127,7 @@ def _lsf(mono_audio, card: str) -> tuple:
             if p_launches[name] < steps:
                 raise AssertionError(f"the {path} path launched {name} {p_launches[name]} times "
                                      f"in {steps} steps")
+        _expect_k5(p_launches, o, steps, path)
         _check_walks(streams, steps * T_MAIN, o)
         f0 = walk_frames(bytes(streams[0]), o.bitrate_kbps if o.free_format else None)[0]
         audio_s = B_MAIN * T_MAIN * o.samples_per_frame / o.sample_rate
@@ -1064,6 +1143,8 @@ def _lsf(mono_audio, card: str) -> tuple:
         del streams
         if path == "lsf iso":
             _check_sweep(first.sweep, path, card)
+        if path == "lsf strict":
+            _check_strict_sweep(first.strict, path, card)
         # an LSF frame's slots hold a fraction of the cap's bits: enough
         # times over (on the first 4096 frames) runs frames past it
         if _check_pack(first.pack, path, card, repeat=None, frames=4096) == 0:
@@ -1288,6 +1369,7 @@ def _mesh(opts, audio, card: str) -> tuple:
             if launches[name] != steps * positions:
                 raise AssertionError(f"[mesh] {label}: {launches[name]} launches of {name} in {steps} "
                                      f"steps over {positions} positions")
+        _expect_k5(launches, opts, steps * positions, f"[mesh] {label}")
         _check_walks(out, steps * T)
         runs[label] = (out, wall, positions, launches)
         if positions == MESH_POSITIONS:
@@ -1333,7 +1415,7 @@ def _mesh(opts, audio, card: str) -> tuple:
         print("[mesh] this host has 1 card: the mesh of every card is one position, and K1 and K2 "
               "on a card other than the current one were not run (they need two cards)", flush=True)
     total = {k: sum(r[3][k] for r in runs.values())
-             for k in ("rate_sweep", "pack", "rate_loop_scan", "placement_scan")}
+             for k in ("rate_sweep", "pack", "rate_loop_scan", "placement_scan", "strict_sweep")}
     return total, one
 
 
@@ -1742,6 +1824,7 @@ def main() -> int:
             raise AssertionError(f"the main path never launched kernel {name}")
     if (main_launches["rate_loop_scan"], main_launches["placement_scan"]) != (STEPS_MAIN, 0):
         raise AssertionError(f"the main path's scans over T: launches {main_launches}")
+    _expect_k5(main_launches, opts, STEPS_MAIN, "main")
     _check_walks(streams, STEPS_MAIN * T_MAIN)
     decode_paths = {"main": (opts, [a[:DECODE_ROWS] for a in audio], streams[:DECODE_ROWS])}
     audio_s = B_MAIN * T_MAIN * 1152 / opts.sample_rate
@@ -1763,6 +1846,7 @@ def main() -> int:
                              f"in {STEPS_STRICT} steps")
     if (s_launches["rate_loop_scan"], s_launches["placement_scan"]) != (STEPS_STRICT,) * 2:
         raise AssertionError(f"the strict path's scans over T: launches {s_launches}")
+    k5_launches = _expect_k5(s_launches, s_opts, STEPS_STRICT, "strict")
     _check_walks(s_streams, STEPS_STRICT * T_MAIN)
     print(f"[strict] BatchEncoder spec_strict {STRICT_OPTIONS} B={B_MAIN} T={T_MAIN} x "
           f"{STEPS_STRICT} steps, {card}: step device ms {['%.2f' % t for t in s_step_ms]} "
@@ -1787,6 +1871,7 @@ def main() -> int:
                                  f"times in {steps} steps")
         if (h_launches["rate_loop_scan"], h_launches["placement_scan"]) != (steps, steps):
             raise AssertionError(f"the {preset} path's scans over T: launches {h_launches}")
+        k5_launches += _expect_k5(h_launches, hq_opts[preset], steps, preset)
         _check_walks(h_streams, steps * T_MAIN)
         hq_launches[preset] = h_launches
         print(f"[{preset}] BatchEncoder hq {HQ_OPTIONS[preset]} B={B_MAIN} T={T_MAIN} x {steps} "
@@ -1797,6 +1882,7 @@ def main() -> int:
         if preset == "hq_joint":
             hq_pack = h_first.pack
             _check_scans(h_first, "hq", card)
+            report["strict_sweep"] = _check_strict_sweep(h_first.strict, "hq", card)
             decode_paths[preset] = (hq_opts[preset], [a[:DECODE_ROWS] for a in audio],
                                     h_streams[:DECODE_ROWS])
         del h_streams, h_first
@@ -1808,6 +1894,7 @@ def main() -> int:
 
     # ---- 4d. serving -----------------------------------------------------------
     serve_launches = _serve(opts, card)
+    _expect_k5(serve_launches, opts, SERVE_STEPS + 1, "serving")
     phase_done("serve")
 
     # ---- 4e. lane churn, compat at the serving shape, then hq ----------------------
@@ -1893,6 +1980,7 @@ def main() -> int:
     h_streams, h_step_ms, h_wall_s, h_launches, h_first = _drive(hq96, audio, STEPS_HQ96)
     if h_launches["pack"] < STEPS_HQ96:
         raise AssertionError(f"the hq96 path launched pack {h_launches['pack']} times")
+    k5_launches += _expect_k5(h_launches, hq96, STEPS_HQ96, "hq96")
     _check_walks(h_streams, STEPS_HQ96 * T_MAIN, hq96)
     audio96 = B_MAIN * T_MAIN * 1152 / hq96.sample_rate
     print(f"[hq96] BatchEncoder hq {HQ_FLAG_OPTIONS['hq_joint_96k']} (lowpass_hz "
@@ -1910,6 +1998,7 @@ def main() -> int:
         f_streams, f_step_ms, _, f_launches, f_first = _drive(o, mono_audio, 1)
         if f_launches["pack"] < 1:
             raise AssertionError(f"the {preset} path never launched pack")
+        k5_launches += _expect_k5(f_launches, o, 1, preset)
         _check_walks(f_streams, T_MAIN, o)
         rates = sorted({f["bitrate_kbps"] for d in f_streams[:32] for f in walk_frames(bytes(d))})
         print(f"[hq flags] {preset} {HQ_FLAG_OPTIONS[preset]} B={B_MAIN} T={T_MAIN} x 1 step, "
@@ -1920,11 +2009,13 @@ def main() -> int:
         del f_first
     phase_done("hq96 and hq flags")
 
-    _hq_dc(mono_audio, card)
+    k5_launches += _hq_dc(mono_audio, card)
     phase_done("hq dc")
-    decode_paths["hq is"] = _hq_is(card)
+    decode_paths["hq is"], is_k5 = _hq_is(card)
+    k5_launches += is_k5
     phase_done("hq is")
     lsf_launches, decode_paths["lsf hq"] = _lsf(mono_audio, card)
+    k5_launches += sum(v["strict_sweep"] for v in lsf_launches.values())
     phase_done("lsf and free format")
     _decode_phase(decode_paths, card)
     del decode_paths
@@ -2077,6 +2168,8 @@ def main() -> int:
          "swiftmp3_tpu/ops/pallas_kernels.py:77"),
         ("rate_loop_scan", "swiftmp3_tpu_torch/ops/csrc/rate_loop_scan.cu",
          "none: the Phase 2 lax.scan of swiftmp3_tpu/models/pipeline.py"),
+        ("strict_sweep", "swiftmp3_tpu_torch/ops/csrc/strict_sweep.cu",
+         "none: the strict sweep in XLA, swiftmp3_tpu/ops/dsp.py:1604-1736"),
     ]
     # K1 and K2 counted on the main path, the serving pool, the LSF and
     # free-format paths, the mesh runs, the two processes and the graft
@@ -2093,6 +2186,9 @@ def main() -> int:
         + serve_launches[n] + sum(v[n] for v in lsf_launches.values()) + mesh_launches[n]
         for n in ("rate_loop_scan", "placement_scan")
     )
+    # K5 on the strict, hq, hq96, hq flag, dc, IS and LSF paths (0 on the
+    # main, serving and mesh paths, each checked)
+    launches["strict_sweep"] = k5_launches + mesh_launches["strict_sweep"]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[n], **report[n]}

@@ -1092,9 +1092,11 @@ def rate_loop_precompute_strict(
 ) -> dict:
     """The strict-entropy sweep (dsp.py:1604-1736): every one of the 20
     grid gains priced exactly by strict_layout_device (the reference's
-    STRICT_ANCHORS are all 20, so its interpolation is the identity), one
-    gain at a time. mag_scale/part2 (real_scalefactors): the 2^(0.75 sf)
-    amplification and the scalefactor bits added to every candidate.
+    STRICT_ANCHORS are all 20, so its interpolation is the identity), all
+    20 in one call of kernels.strict_sweep (K5 on a card; on the CPU its
+    plain version, one gain at a time). mag_scale/part2
+    (real_scalefactors): the 2^(0.75 sf) amplification and the scalefactor
+    bits added to every candidate.
     iso_short: switching granules' magnitudes and signs go to the ISO
     2.4.3.4.8 stream order first (quantization is pointwise), the sign
     riding on the magnitude's sign bit through one gather; START and STOP
@@ -1122,28 +1124,17 @@ def rate_loop_precompute_strict(
     k_budget = torch.where(allzero0, N_GAIN_CANDIDATES - 1, N_GAIN_CANDIDATES).to(_I32)
 
     k = torch.arange(N_GAIN_CANDIDATES, dtype=_I32, device=spectrum.device)
-    inv_table = inv_step_table(iso, spectrum.device, floor=not linbits)
-    qcap = float(QCAP_LINBITS if linbits else 15)
-    cols = []
-    for a in range(N_GAIN_CANDIDATES):
-        # unsigned quantize (bit counts are sign-invariant): the product and
-        # the sum rounded separately, as the reference
-        inv = inv_table[torch.clamp(gstart + 4 * a, max=255).long()]
-        q_abs = torch.clamp(torch.floor(mag * inv[..., None] + 0.5), max=qcap).to(_I32)
-        lay = strict_layout_device(
-            q_abs, sample_rate, is_long, count1_coding, region_table_select,
-            assume_abs=True, linbits=linbits, b0_switch=b0_switch,
-        )
-        cols.append(lay["bits"])
-    bits = torch.stack(cols, dim=-1)
-    if part2 is not None:
-        bits = bits + part2[..., None]
+    bits = kernels.strict_sweep(
+        mag.contiguous(), gstart, inv_step_table(iso, spectrum.device, floor=not linbits),
+        is_long, b0_switch, part2, sample_rate=sample_rate, count1_coding=count1_coding,
+        region_table_select=region_table_select, linbits=linbits,
+    )
     return {
         "mag": mag,
         "sign_neg": sign_neg,
         "gstart": gstart,
         "k_budget": k_budget,
-        "bits": bits.to(_I32),
+        "bits": bits,
         "evaluated": (k == 0) | (gstart[..., None] + 4 * k < 255),
         "iso": iso,
         "strict": (sample_rate, count1_coding, region_table_select),

@@ -5,27 +5,37 @@ PyTorch versions: one for each Pallas kernel of the reference.
     pack        <- swiftmp3_tpu/ops/pallas_kernels.py:pack_pallas            (K2)
     polyphase   <- swiftmp3_tpu/ops/pallas_kernels.py:polyphase_chunk_pallas (K3)
 
-and one with no Pallas kernel behind it: the chunk program's integer scans
+and two with no Pallas kernel behind them: the chunk program's integer scans
 over T (the reference's Phase 2 `lax.scan`, swiftmp3_tpu/models/pipeline.py),
 `rate_loop_scan` and strict's second loop `placement_scan`, two entry points
-of one source (K4).
+of one source (K4); and the strict sweep, `strict_sweep` (K5), which prices
+all 20 grid gains of each granule under the strict entropy layout in one
+launch, where the reference lays out each gain in XLA
+(swiftmp3_tpu/ops/dsp.py:1604-1736) and the plain version does so one gain
+at a time (the loop that was ops/dsp.py:1127-1137).
 
 Dispatch is by the device of the input tensor, with no fallback: a CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or raises
 (a failed build, a refused launch and a nonzero `cudaGetLastError()` all
 raise). Each wrapper adds one to `LAUNCHES[name]` where it launches its
-kernel, and nowhere else.
+kernel, and nowhere else (K5 also to the port's trace counter
+`sweep.strict_launches`).
 
-All three are laid out for the H100's SM (each csrc/*.cu says how): K1
+Each is laid out for the H100's SM (each csrc/*.cu says how): K1
 quantizes without a float-to-int conversion and prices a pair with one byte
 lookup in `sweep_cost_table`; K2 is a persistent grid of warps
 (`pack_plan`), each packing whole frames from a ring of slot tiles, the
 nbits staged by TMA bulk copies and only the live slots' chunks by cp.async;
 K3 register-tiles its cosine product and walks
 `polyphase_plan`'s tiles with asynchronous staging; K4 walks each stream's
-frames with one warp, its state in registers. What the launches need beyond
-pointers (the cost table, the grids, the dynamic shared-memory sizes, K4's
-parameter block) is computed here, where the CPU tests reach it.
+frames with one warp, its state in registers; K5 gives each granule a warp
+whose lanes hold its magnitudes in registers (four lines a lane a round, by
+float4 loads) for all 20 gains, with the pair costs as bytes
+(`strict_cost_table`) and the rate's region bounds (`strict_sweep_lut`) in
+shared memory. K1's and K5's quantizers round the product and the sum
+apart (no FMA, which would move q across .5 knife edges). What the launches
+need beyond pointers (the cost tables, the grids, the dynamic shared-memory
+sizes, K4's parameter block) is computed here, where the CPU tests reach it.
 
 Build: `nvcc` (sm_90a) compiles each `csrc/*.cu` into a shared library with
 a plain C interface under `swiftmp3_tpu_torch/_build/` at the first CUDA
@@ -45,10 +55,15 @@ import threading
 
 import torch
 
+from ..utils import profiling
+
 N_GAIN_CANDIDATES = 20  # the reference's maxIterations
 _PAIRS = 288
 
-LAUNCHES = {"rate_sweep": 0, "pack": 0, "polyphase": 0, "rate_loop_scan": 0, "placement_scan": 0}
+LAUNCHES = {
+    "rate_sweep": 0, "pack": 0, "polyphase": 0, "rate_loop_scan": 0, "placement_scan": 0,
+    "strict_sweep": 0,
+}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
@@ -57,7 +72,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # names that ENTRY_LIBRARY maps to it
 SOURCES = {
     "rate_sweep": "rate_sweep.cu", "pack": "pack.cu", "polyphase": "polyphase.cu",
-    "rate_loop_scan": "rate_loop_scan.cu",
+    "rate_loop_scan": "rate_loop_scan.cu", "strict_sweep": "strict_sweep.cu",
 }
 ENTRY_LIBRARY = {name: name for name in SOURCES} | {"placement_scan": "rate_loop_scan"}
 NVCC_FLAGS = [
@@ -65,10 +80,11 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 EXTRA_NVCC_FLAGS = {
-    # no FMA contraction: K1's quantizer rounds mag*inv, then +0.5, then
-    # floors; K4's energy law subtracts, then multiplies
+    # no FMA contraction: K1's and K5's quantizers round mag*inv, then +0.5,
+    # then floor; K4's energy law subtracts, then multiplies
     "rate_sweep": ["--fmad=false"],
     "rate_loop_scan": ["--fmad=false"],
+    "strict_sweep": ["--fmad=false"],
 }
 
 _vp = ctypes.c_void_p
@@ -82,6 +98,9 @@ _SIGNATURES = {
     # (&SwmScanParams, &SwmScanIo, stream); (&SwmScanParams, &SwmPlacementIo, stream)
     "rate_loop_scan": [_vp, _vp, _vp],
     "placement_scan": [_vp, _vp, _vp],
+    # (mag, gstart, is_long, b0_switch, part2, inv_table, cost_table, lut, bits, n,
+    #  count1_coding, region_table_select, linbits, stream)
+    "strict_sweep": [_vp] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_vp],
 }
 
 _build_lock = threading.Lock()
@@ -858,3 +877,133 @@ def placement_scan(
     _launch("placement_scan", dev, ctypes.addressof(params), ctypes.addressof(io))
     LAUNCHES["placement_scan"] += 1
     return new, mdb
+
+
+# --- K5: the strict sweep ---------------------------------------------------------
+
+# The kernel's word table (csrc/strict_sweep.cu): a long granule's region
+# bounds b0 | b1 << 16 for each big_values 0..288, table_for_max for maxima
+# 0..15, the ESC family's bounds, the count1 A code lengths by pattern
+K5_LUT_REGION = 0
+K5_LUT_TABLE_FOR_MAX = 289
+K5_LUT_ESC_BOUNDS = 305
+K5_LUT_COUNT1_LEN = 312
+K5_LUT_WORDS = 328
+
+
+@functools.lru_cache(maxsize=None)
+def strict_cost_table(device: torch.device) -> torch.Tensor:
+    """The kernel's one lookup per pair: dsp.PAIR_COST, [32 x 256] (table id,
+    then min(x, 15) * 16 + min(y, 15): code length, sign bits and the id's
+    linbits per escaped coordinate) as uint8 (made once per device). Raises
+    if a cost does not fit a byte."""
+    from .dsp import PAIR_COST
+
+    cost = torch.from_numpy(PAIR_COST).reshape(-1)
+    if int(cost.min()) < 0 or int(cost.max()) > 255:
+        raise ValueError("strict sweep: a pair cost does not fit the kernel's byte table")
+    return cost.to(torch.uint8).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def strict_sweep_lut(sample_rate: int, device: torch.device) -> torch.Tensor:
+    """The kernel's word table for `sample_rate` (made once per rate and
+    device), K5_LUT_WORDS int32 at the K5_LUT_* offsets: a long granule's
+    region bounds by big_values (dsp.region_counts, then the bounds the
+    plain layout reads, b0 | b1 << 16), dsp.TABLE_FOR_MAX, dsp.ESC_BOUNDS and
+    the count1 A code lengths."""
+    from .dsp import COUNT1A_LEN_T, ESC_BOUNDS, TABLE_FOR_MAX, _region_bounds, region_counts
+
+    bv = torch.arange(K5_LUT_TABLE_FOR_MAX, dtype=torch.int32)
+    b0, b1 = _region_bounds(*region_counts(bv, sample_rate), sample_rate)
+    lut = torch.zeros(K5_LUT_WORDS, dtype=torch.int32)
+    lut[K5_LUT_REGION:K5_LUT_TABLE_FOR_MAX] = b0 | (b1 << 16)
+    lut[K5_LUT_TABLE_FOR_MAX:K5_LUT_ESC_BOUNDS] = torch.from_numpy(TABLE_FOR_MAX)
+    lut[K5_LUT_ESC_BOUNDS:K5_LUT_ESC_BOUNDS + len(ESC_BOUNDS)] = torch.from_numpy(ESC_BOUNDS)
+    lut[K5_LUT_COUNT1_LEN:] = torch.from_numpy(COUNT1A_LEN_T)
+    return lut.to(device)
+
+
+def strict_sweep_plain(
+    mag, gstart, inv_table, is_long, b0_switch=None, part2=None, *,
+    sample_rate: int, count1_coding: bool, region_table_select: bool, linbits: bool,
+) -> torch.Tensor:
+    """Plain version of K5: the 20 gains priced one at a time, each
+    quantized (the product and the sum rounded separately, as the
+    reference) and laid out in full by dsp.strict_layout_device."""
+    from .dsp import QCAP_LINBITS, strict_layout_device
+
+    qcap = float(QCAP_LINBITS if linbits else 15)
+    cols = []
+    for a in range(N_GAIN_CANDIDATES):
+        inv = inv_table[torch.clamp(gstart + 4 * a, max=255).long()]
+        q_abs = torch.clamp(torch.floor(mag * inv[..., None] + 0.5), max=qcap).to(torch.int32)
+        lay = strict_layout_device(
+            q_abs, sample_rate, is_long, count1_coding, region_table_select,
+            assume_abs=True, linbits=linbits, b0_switch=b0_switch,
+        )
+        cols.append(lay["bits"])
+    bits = torch.stack(cols, dim=-1)
+    if part2 is not None:
+        bits = bits + part2[..., None]
+    return bits.to(torch.int32)
+
+
+def _per_granule(t: torch.Tensor, lead: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """t broadcast to the granules' shape, contiguous, as `dtype` (no copy
+    when it already is)."""
+    if tuple(t.shape) != lead or t.dtype != dtype or not t.is_contiguous():
+        t = torch.broadcast_to(t.to(dtype), lead).contiguous()
+    return t
+
+
+def strict_sweep(
+    mag, gstart, inv_table, is_long, b0_switch=None, part2=None, *,
+    sample_rate: int, count1_coding: bool, region_table_select: bool, linbits: bool,
+) -> torch.Tensor:
+    """The strict-entropy bits of the 20-gain grid (K5): for gains
+    min(gstart + 4a, 255), q = min(floor(mag * inv + 0.5), qcap) (15, or
+    QCAP_LINBITS under linbits) laid out by dsp.strict_layout_device, its
+    "bits", plus part2.
+
+    mag: [..., 576] float32 (|x|^0.75, scaled, in stream order); gstart:
+    [...] int32 in 0..255; inv_table: [256] float32, the inverse steps of
+    the law (dsp.inv_step_table); is_long: bool, and b0_switch (None: 36)
+    and part2 (None: 0) int32, each broadcasting against [...]. Returns
+    bits [..., 20] int32."""
+    options = dict(
+        sample_rate=sample_rate, count1_coding=count1_coding,
+        region_table_select=region_table_select, linbits=linbits,
+    )
+    if _on_cpu(mag):
+        return strict_sweep_plain(mag, gstart, inv_table, is_long, b0_switch, part2, **options)
+    _require_cuda(mag, gstart, inv_table)
+    lead = tuple(gstart.shape)
+    _require(mag, "mag", torch.float32, lead + (576,))
+    _require(gstart, "gstart", torch.int32, lead)
+    _require(inv_table, "inv_table", torch.float32, (256,))
+    if mag.data_ptr() % 16:
+        raise ValueError("mag: the kernel reads float4 (16-byte aligned)")
+    dev = mag.device
+    is_long = _per_granule(is_long, lead, torch.bool)
+    if b0_switch is not None:
+        b0_switch = _per_granule(b0_switch, lead, torch.int32)
+    if part2 is not None:
+        part2 = _per_granule(part2, lead, torch.int32)
+    _require_cuda(mag, is_long, *(t for t in (b0_switch, part2) if t is not None))
+    n = gstart.numel()
+    bits = torch.empty(lead + (N_GAIN_CANDIDATES,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return bits
+    _launch(
+        "strict_sweep", dev,
+        mag.data_ptr(), gstart.data_ptr(), is_long.data_ptr(),
+        None if b0_switch is None else b0_switch.data_ptr(),
+        None if part2 is None else part2.data_ptr(),
+        inv_table.data_ptr(), strict_cost_table(dev).data_ptr(),
+        strict_sweep_lut(sample_rate, dev).data_ptr(), bits.data_ptr(), n,
+        int(count1_coding), int(region_table_select), int(linbits),
+    )
+    LAUNCHES["strict_sweep"] += 1
+    profiling.count("sweep.strict_launches")
+    return bits

@@ -11,7 +11,10 @@ filterbank and MDCT against the JAX bytes; K1 and K2 on a card other than
 the current one (skips below two cards); the graft entry's step on the card
 (`graft_entry.entry()`) against the CPU's, and its dry run; K4's two scans
 over T against their plain versions in every configuration the chunk
-program runs them in, and the chunk program launching each once a chunk.
+program runs them in, and the chunk program launching each once a chunk;
+K5, the strict sweep, against its plain version over the option grid, on
+FMA knife edges and on the chunk program's own inputs, launched once a
+sweep, and an hq and an LSF batch priced by it giving the CPU's bytes.
 
 Every test here needs a CUDA card and skips without one (the kernels have no
 CPU mode). The file imports nothing of JAX and nothing of the JAX package, so
@@ -49,6 +52,7 @@ from .torch_inputs import (
     scan_input,
     scan_options,
     strict_pack_input,
+    strict_sweep_input,
     sweep_input,
 )
 
@@ -674,3 +678,172 @@ def test_chunk_program_on_the_card_launches_each_scan_once(cuda_device, preset, 
         kernels.LAUNCHES["rate_loop_scan"] - before["rate_loop_scan"],
         kernels.LAUNCHES["placement_scan"] - before["placement_scan"],
     ) == scans
+
+
+# K5's option grid: count1_coding x region_table_select x linbits x ISO law
+STRICT_SWEEP_GRID = [
+    (c1, select, linbits, iso)
+    for c1 in (False, True) for select in (False, True)
+    for linbits in (False, True) for iso in (False, True)
+]
+
+
+def _strict_sweep_pair(mag, g0, inv, is_long, b0, part2, **options):
+    """K5 and its plain version on the same inputs, K5 launched once."""
+    before = kernels.LAUNCHES["strict_sweep"]
+    got = kernels.strict_sweep(mag, g0, inv, is_long, b0, part2, **options)
+    assert kernels.LAUNCHES["strict_sweep"] == before + 1
+    return got, kernels.strict_sweep_plain(mag, g0, inv, is_long, b0, part2, **options)
+
+
+@pytest.mark.parametrize("sample_rate", [44100, 22050])
+@pytest.mark.parametrize("count1_coding,region_table_select,linbits,iso", STRICT_SWEEP_GRID)
+def test_strict_sweep_kernel_matches_plain(
+    cuda_device, sample_rate, count1_coding, region_table_select, linbits, iso
+):
+    """K5 against its plain version on the card, bit for bit, over the
+    option grid at 44.1 kHz and at 22.05 kHz with the switching region-0
+    bounds: long and switching granules (short, START/STOP), an all-zero
+    granule, gstart at 0 and 252-255, magnitudes past QCAP_LINBITS, with
+    part2 and without, on flat granules and on the chunk program's
+    [B, ch, T, gr] layout with is_long broadcast over the channels."""
+    seed = 17 * sample_rate + 8 * count1_coding + 4 * region_table_select + 2 * linbits + iso
+    mag, g0, is_long, b0, part2 = (
+        torch.from_numpy(x).to(cuda_device)
+        for x in strict_sweep_input(4104, seed, linbits, sample_rate)
+    )
+    if sample_rate > 24000:
+        b0 = None
+    inv = dsp.inv_step_table(iso, cuda_device, floor=not linbits)
+    options = dict(sample_rate=sample_rate, count1_coding=count1_coding,
+                   region_table_select=region_table_select, linbits=linbits)
+    for p2 in (part2, None):
+        got, want = _strict_sweep_pair(mag, g0, inv, is_long, b0, p2, **options)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    lead = (57, 2, 18, 2)  # [B, ch, T, gr]
+    shaped = (mag.reshape(lead + (576,)), g0.reshape(lead), is_long.reshape(lead)[:, :1],
+              None if b0 is None else b0.reshape(lead), part2.reshape(lead))
+    got, want = _strict_sweep_pair(*shaped[:2], inv, *shaped[2:], **options)
+    assert got.shape == lead + (20,) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("iso,linbits", [(False, False), (True, False), (True, True)])
+def test_strict_sweep_kernel_matches_plain_on_fma_knife_edges(cuda_device, iso, linbits):
+    """Granules whose magnitudes meet the grid gains' FMA knife edges
+    (tests/torch_inputs.knife_edge_sweep_input), and granules of
+    magnitudes (n + 0.5) / inv and their float neighbours for n up to past
+    the law's cap: K5 quantizes as the plain version does (the product and
+    the sum rounded apart), under each entropy coding."""
+    inv = dsp.inv_step_table(iso, cuda_device, floor=not linbits)
+    table = inv.cpu().numpy()
+    mag, g0 = knife_edge_sweep_input(table)
+    rng = np.random.default_rng(23 + 2 * iso + linbits)
+    gains = rng.integers(0, 256, 256).astype(np.int32)
+    k = rng.integers(0, 20, (256, 576))
+    n = rng.integers(0, 8300 if linbits else 17, (256, 576))
+    g = np.minimum(gains[:, None] + 4 * k, 255)  # a grid gain of each line's granule
+    half = ((n + 0.5) / table[g].astype(np.float64)).astype(np.float32)
+    for _ in range(2):
+        step = rng.integers(-1, 2, half.shape)
+        half = np.where(step < 0, np.nextafter(half, np.float32(0)),
+                        np.where(step > 0, np.nextafter(half, np.float32(np.inf)), half))
+    mag = np.concatenate([mag, half.astype(np.float32)])
+    g0 = np.concatenate([g0, gains])
+    m, g = torch.from_numpy(mag).to(cuda_device), torch.from_numpy(g0).to(cuda_device)
+    is_long = torch.arange(len(g0), device=cuda_device) % 3 != 0
+    for c1, select in ((True, True), (False, False)):
+        got, want = _strict_sweep_pair(
+            m, g, inv, is_long, None, None, sample_rate=44100, count1_coding=c1,
+            region_table_select=select, linbits=linbits,
+        )
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "preset", ["strict", "hq_joint", "lsf strict", "lsf hq", "hq_dc3p_mono128", "strict_is_32k"]
+)
+def test_strict_sweep_kernel_matches_plain_on_the_chunk_programs_inputs(cuda_device, preset):
+    """K5 on the first sweep input the chunk program hands it on the
+    card (spec_strict, hq joint stereo with window sequencing, the two LSF
+    strict paths, distortion control at three passes, intensity stereo),
+    against its plain version there."""
+    from .torch_inputs import (
+        LSF_PATHS,
+        bench_audio,
+        chunk_kernel_inputs,
+        panned_audio,
+        path_kernel_inputs,
+        preset_options,
+        step_lookahead,
+    )
+
+    if preset in LSF_PATHS:
+        inputs = path_kernel_inputs(cuda_device, preset, B=8, T=8)
+    else:
+        o = preset_options(preset)
+        rng = np.random.default_rng(4)
+        if o.intensity_stereo:
+            audio = [panned_audio(rng, 8, 8, o.sample_rate) for _ in range(2)]
+        else:
+            audio = [bench_audio(rng, 8, 8, o.channels, o.sample_rate, o.samples_per_frame)
+                     for _ in range(2)]
+        la = step_lookahead(audio, 0, o.channels) if o.window_sequencing else None
+        inputs = chunk_kernel_inputs(o, cuda_device, audio[0], la)
+    args, options = inputs["strict_sweep"]
+    got, want = _strict_sweep_pair(*args, **options)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "preset,sweeps", [("compat", 0), ("strict", 1), ("hq_joint", 1), ("lsf_strict", 1),
+                      ("hq_dc3p_mono128", 4)],
+)
+def test_chunk_program_on_the_card_launches_k5_once_a_sweep(cuda_device, preset, sweeps):
+    """LAUNCHES["strict_sweep"] counts one launch a strict sweep of a chunk
+    (1 + dc_passes under distortion control) and none on the compat path."""
+    from swiftmp3_tpu_torch.models import pipeline
+
+    from .torch_inputs import preset_options
+
+    o = preset_options(preset)
+    B, T = 3, 4
+    rng = np.random.default_rng(9)
+    pcm = torch.from_numpy(
+        (rng.standard_normal((B, T, o.samples_per_frame * o.channels)) * 3000).astype(np.int16)
+    ).to(cuda_device)
+    la = torch.zeros((B, T, 576 * o.channels), dtype=torch.int16, device=cuda_device)
+    flags = torch.zeros((B, T), dtype=torch.bool, device=cuda_device)
+    before = kernels.LAUNCHES["strict_sweep"]
+    pipeline.make_chunk_fn(o)(pipeline.init_carry(B, o, cuda_device), pcm, flags, ~flags, la)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["strict_sweep"] - before == sweeps
+
+
+@pytest.mark.parametrize("preset", ["hq_joint", "lsf_strict"])
+def test_strict_batch_on_the_card_with_the_cpu_filterbank_matches_the_cpu(
+    cuda_device, preset, monkeypatch
+):
+    """An hq batch (joint stereo 128 kbps, window sequencing, linbits) and
+    an LSF batch (spec_strict joint stereo 64 kbps at 22.05 kHz), priced by
+    K5 on the card, with the port's CPU filterbank and MDCT in place of the
+    card's (every other op on the card), give the CPU batch's bytes."""
+    o = scan_options(preset)
+    spf = o.samples_per_frame
+    base = make_signal("burst", 0.6, o.sample_rate, 2, 37)
+    streams = [base, base[: 2 * spf * 9 + 10].copy(), base[::-1].copy()]
+    want = encode_batch(o, streams, device="cpu", frames_per_step=8)
+    pm, md = dsp.polyphase_chunk_matmul, dsp.mdct_chunk
+    monkeypatch.setattr(
+        dsp, "polyphase_chunk_matmul",
+        lambda h, p: tuple(x.to(h.device) for x in pm(h.cpu(), p.cpu())),
+    )
+    monkeypatch.setattr(
+        dsp, "mdct_chunk",
+        lambda S, ov, bt, *a, **k: tuple(
+            x.to(S.device) for x in md(S.cpu(), ov.cpu(), bt.cpu(), *a, **k)
+        ),
+    )
+    before = kernels.LAUNCHES["strict_sweep"]
+    got = encode_batch(o, streams, device=cuda_device, frames_per_step=8)
+    assert kernels.LAUNCHES["strict_sweep"] > before
+    assert got == want

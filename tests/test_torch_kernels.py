@@ -35,6 +35,7 @@ from .torch_inputs import (
     scan_input,
     scan_options,
     strict_pack_input,
+    strict_sweep_input,
     sweep_input,
 )
 
@@ -46,7 +47,10 @@ PACK_SHAPES = [
     (4, 1872, 894), (4, 936, 910),
 ]
 K3_TOLERANCE = 2e-5  # tests/test_pallas.py
-NO_LAUNCHES = {"rate_sweep": 0, "pack": 0, "polyphase": 0, "rate_loop_scan": 0, "placement_scan": 0}
+NO_LAUNCHES = {
+    "rate_sweep": 0, "pack": 0, "polyphase": 0, "rate_loop_scan": 0, "placement_scan": 0,
+    "strict_sweep": 0,
+}
 
 
 # --- plain versions against the Pallas kernels (interpret mode) ---------------
@@ -241,6 +245,7 @@ def test_cuda_tensors_launch_the_kernel_never_the_plain_version(monkeypatch):
     monkeypatch.setattr(kernels, "polyphase_chunk_plain", no_plain)
     monkeypatch.setattr(kernels, "rate_loop_scan_plain", no_plain)
     monkeypatch.setattr(kernels, "placement_scan_plain", no_plain)
+    monkeypatch.setattr(kernels, "strict_sweep_plain", no_plain)
     monkeypatch.setattr(kernels, "LAUNCHES", dict(NO_LAUNCHES))
 
     mag, g0 = sweep_input(9)
@@ -258,9 +263,18 @@ def test_cuda_tensors_launch_the_kernel_never_the_plain_version(monkeypatch):
     assert outs[5].dtype == torch.bool and new["slot_fifo"].shape == (3, 1)
     new, mdb = kernels.placement_scan(cfg, p_carry, hb, outs[3], ins["final"], ins["valid"])
     assert mdb.shape == (5, 3) and new["stream_len"].shape == (3,)
-    assert launched == ["rate_sweep", "pack", "polyphase", "rate_loop_scan", "placement_scan"]
+    mag, g0, is_long, b0, part2 = (torch.from_numpy(x) for x in strict_sweep_input(6))
+    bits = kernels.strict_sweep(
+        mag, g0, tdsp.inv_step_table(True, mag.device), is_long, b0, part2,
+        sample_rate=22050, count1_coding=True, region_table_select=True, linbits=False,
+    )
+    assert bits.shape == (6, 20) and bits.dtype == torch.int32
+    assert launched == [
+        "rate_sweep", "pack", "polyphase", "rate_loop_scan", "placement_scan", "strict_sweep",
+    ]
     assert kernels.LAUNCHES == {
         "rate_sweep": 1, "pack": 1, "polyphase": 1, "rate_loop_scan": 1, "placement_scan": 1,
+        "strict_sweep": 1,
     }
 
 
@@ -692,3 +706,155 @@ def test_scan_layout_matches_the_cuda_source():
     assert constant("kHistory") == kernels.K4_HISTORY
     assert constant("kPart23Max") == tdsp.PART23_MAX_BITS
     assert [constant(n) for n in ("kCbr", "kEnergy", "kDemand")] == list(kernels.RATE_LAWS.values())
+
+
+# --- K5: the strict sweep -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("linbits", [False, True], ids=["table15", "linbits"])
+@pytest.mark.parametrize("region_table_select", [False, True], ids=["t15", "select"])
+@pytest.mark.parametrize("count1_coding", [False, True], ids=["no_count1", "count1"])
+def test_strict_sweep_on_cpu_is_the_gain_loop_and_launches_nothing(
+    monkeypatch, count1_coding, region_table_select, linbits
+):
+    """On CPU tensors kernels.strict_sweep prices each of the 20 gains as
+    the sweep always has: quantize at the gain (dsp.quantize_at_gains, the
+    law's step; linbits: the unfloored ISO step up to QCAP_LINBITS), lay
+    the granule out (dsp.strict_layout_device), add part2. Long, switching
+    and all-zero granules, gstart near 255; at MPEG-1 with the fixed 36 and
+    at 22.05 kHz with the switching bounds. Nothing launches."""
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(NO_LAUNCHES))
+    monkeypatch.setattr(kernels, "_launch", lambda *a: pytest.fail("a CPU tensor launched"))
+    for sr, seed in ((44100, 1), (22050, 2)):
+        mag, g0, is_long, b0, part2 = (
+            torch.from_numpy(x) for x in strict_sweep_input(16, seed, linbits, sr)
+        )
+        b0 = b0 if sr < 32000 else None
+        iso = linbits or sr < 32000
+        inv = tdsp.inv_step_table(iso, mag.device, floor=not linbits)
+        got = kernels.strict_sweep(
+            mag, g0, inv, is_long, b0, part2, sample_rate=sr, count1_coding=count1_coding,
+            region_table_select=region_table_select, linbits=linbits,
+        )
+        gains = torch.clamp(g0[:, None] + 4 * torch.arange(20, dtype=torch.int32), max=255)
+        q = tdsp.quantize_at_gains(
+            mag, torch.zeros(mag.shape, dtype=torch.bool), gains, iso=iso,
+            qcap=tdsp.QCAP_LINBITS if linbits else 15, floor=not linbits,
+        )
+        want = torch.stack([
+            tdsp.strict_layout_device(
+                q[:, a], sr, is_long, count1_coding, region_table_select, linbits=linbits,
+                b0_switch=b0,
+            )["bits"]
+            for a in range(20)
+        ], dim=-1) + part2[:, None]
+        assert got.dtype == torch.int32 and torch.equal(got, want), sr
+    assert kernels.LAUNCHES == NO_LAUNCHES
+
+
+def test_strict_sweep_tables_hold_what_the_plain_layout_reads():
+    """K5's tables: the [32 x 256] pair costs are dsp.PAIR_COST (each fits a
+    byte); at each MPEG-1, MPEG-2 and MPEG-2.5 rate the region bounds of
+    every big_values 0..288 are the b0 and b1 strict_layout_device lays out
+    for a long granule with that big_values; table_for_max with the ESC
+    bounds picks table_for_max_device's id for every maximum up to
+    QCAP_LINBITS; the count1 A lengths are the layout's. The word table's
+    offsets are the CUDA source's."""
+    import re
+
+    cpu = torch.device("cpu")
+    cost = kernels.strict_cost_table(cpu)
+    assert cost.dtype == torch.uint8 and cost.shape == (32 * 256,)
+    assert np.array_equal(cost.numpy(), tdsp.PAIR_COST.reshape(-1))
+    assert 0 <= tdsp.PAIR_COST.min() and tdsp.PAIR_COST.max() <= 255
+    q = torch.zeros((289, 576), dtype=torch.int32)
+    bv = torch.arange(289)
+    q[bv[1:], 2 * bv[1:] - 1] = 2  # the last line above 1 ends big_values
+    for sr in (44100, 32000, 22050, 11025, 8000):
+        lut = kernels.strict_sweep_lut(sr, cpu)
+        assert lut.dtype == torch.int32 and lut.shape == (kernels.K5_LUT_WORDS,)
+        lay = tdsp.strict_layout_device(q, sr, torch.ones(289, dtype=torch.bool), True, True)
+        assert torch.equal(lay["bv"], bv.to(torch.int32))
+        region = lut[kernels.K5_LUT_REGION:kernels.K5_LUT_TABLE_FOR_MAX]
+        assert torch.equal(region & 0xFFFF, lay["b0"]) and torch.equal(region >> 16, lay["b1"]), sr
+    m = torch.arange(tdsp.QCAP_LINBITS + 1, dtype=torch.int32)
+    tfm = lut[kernels.K5_LUT_TABLE_FOR_MAX:kernels.K5_LUT_ESC_BOUNDS]
+    esc = lut[kernels.K5_LUT_ESC_BOUNDS:kernels.K5_LUT_COUNT1_LEN]
+    above = ((esc[:len(tdsp.ESC_BOUNDS)][None, :] < (m - 15)[:, None]).sum(-1)).to(torch.int32)
+    base = tfm[torch.clamp(m, max=15).long()]
+    assert torch.equal(base[:16], tdsp.table_for_max_device(m[:16]))
+    assert torch.equal(torch.where(m > 15, 24 + above, base), tdsp.table_for_max_device(m, True))
+    assert torch.equal(lut[kernels.K5_LUT_COUNT1_LEN:], tdsp.constant("count1a_len", cpu))
+    with open(f"{kernels.CSRC_DIR}/strict_sweep.cu") as fh:
+        src = fh.read()
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert [constant(n) for n in ("kLutRegion", "kLutTableForMax", "kLutEscBounds",
+                                  "kLutCount1Len", "kLutWords", "kEscBounds")] == [
+        kernels.K5_LUT_REGION, kernels.K5_LUT_TABLE_FOR_MAX, kernels.K5_LUT_ESC_BOUNDS,
+        kernels.K5_LUT_COUNT1_LEN, kernels.K5_LUT_WORDS, len(tdsp.ESC_BOUNDS),
+    ]
+
+
+def test_strict_sweep_launch_is_counted_in_launches_and_in_the_trace(monkeypatch):
+    """A card call of kernels.strict_sweep launches once (mocked here): one
+    in LAUNCHES["strict_sweep"] and, while the port traces, one in the
+    counter "sweep.strict_launches"; the options reach the C entry point as
+    ints, an absent b0_switch or part2 as a null pointer, and the granules'
+    flags broadcast to one a granule."""
+    from swiftmp3_tpu_torch.utils import profiling
+
+    calls = []
+    monkeypatch.setattr(kernels, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(kernels, "_require_cuda", lambda *t: None)
+    monkeypatch.setattr(kernels, "_launch", lambda name, device, *args: calls.append(args))
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(NO_LAUNCHES))
+    mag, g0 = (torch.from_numpy(x) for x in sweep_input(6))
+    g0 = g0.reshape(2, 3)
+    inv = tdsp.inv_step_table(True, mag.device, floor=False)
+    profiling.reset()
+    profiling.enable()
+    try:
+        kernels.strict_sweep(
+            mag.reshape(2, 3, 576), g0, inv, torch.tensor([True, False, True]),
+            sample_rate=44100, count1_coding=True, region_table_select=False, linbits=True,
+        )
+    finally:
+        profiling.disable()
+    assert kernels.LAUNCHES["strict_sweep"] == 1
+    assert profiling.snapshot()["counters"] == {"sweep.strict_launches": 1}
+    profiling.reset()
+    (args,) = calls
+    assert args[3] is None and args[4] is None  # b0_switch, part2
+    assert args[9:] == (6, 1, 0, 1)  # granules, count1_coding, region_table_select, linbits
+
+
+@pytest.mark.parametrize(
+    "preset,sweeps", [("compat", 0), ("strict", 1), ("hq_joint", 1), ("lsf_strict", 1),
+                      ("strict_is_32k", 1), ("hq_dc3p_mono128", 4)],
+)
+def test_chunk_program_prices_each_strict_pass_in_one_sweep_call(monkeypatch, preset, sweeps):
+    """make_chunk_fn calls kernels.strict_sweep once for each strict sweep
+    of a chunk (1, or 1 + dc_passes under distortion control) and not at
+    all on the compat path, which K1 prices."""
+    from swiftmp3_tpu_torch.models import pipeline
+
+    from .torch_inputs import preset_options
+
+    calls = []
+    sweep = kernels.strict_sweep
+    monkeypatch.setattr(kernels, "strict_sweep", lambda *a, **k: calls.append(1) or sweep(*a, **k))
+    o = preset_options(preset)
+    B, T = 2, 2
+    rng = np.random.default_rng(6)
+    pcm = torch.from_numpy(
+        (rng.standard_normal((B, T, o.samples_per_frame * o.channels)) * 3000).astype(np.int16)
+    )
+    la = torch.zeros((B, T, 576 * o.channels), dtype=torch.int16)
+    pipeline.make_chunk_fn(o)(
+        pipeline.init_carry(B, o, torch.device("cpu")), pcm,
+        torch.zeros((B, T), dtype=torch.bool), torch.ones((B, T), dtype=torch.bool), la,
+    )
+    assert len(calls) == sweeps

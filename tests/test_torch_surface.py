@@ -48,11 +48,14 @@ MOVED = {
     "__graft_entry__.py": "swiftmp3_tpu_torch/graft_entry.py",
     "swiftmp3_tpu/ops/pallas_kernels.py": "swiftmp3_tpu_torch/ops/kernels.py",
 }
-# The Pallas kernels' CUDA sources (K1, K2, K3).
+# The CUDA sources: the Pallas kernels' (K1, K2, K3), and, under the port's
+# wrapper name, those of the kernels no Pallas kernel stands behind (K4, K5).
 CUDA_SOURCES = {
     "rate_sweep_pallas": "swiftmp3_tpu_torch/ops/csrc/rate_sweep.cu",
     "pack_pallas": "swiftmp3_tpu_torch/ops/csrc/pack.cu",
     "polyphase_chunk_pallas": "swiftmp3_tpu_torch/ops/csrc/polyphase.cu",
+    "rate_loop_scan": "swiftmp3_tpu_torch/ops/csrc/rate_loop_scan.cu",
+    "strict_sweep": "swiftmp3_tpu_torch/ops/csrc/strict_sweep.cu",
 }
 _KERNELS = "swiftmp3_tpu_torch/ops/kernels.py"
 _PORT_DSP = "swiftmp3_tpu_torch/ops/dsp.py"
@@ -162,7 +165,7 @@ def test_every_reference_module_has_its_counterpart():
     assert seen == set(NOT_PORTED), f"stale NOT_PORTED entries: {set(NOT_PORTED) - seen}"
     assert set(MOVED) <= set(mods) and set(RENAMED) | set(LEFT_OUT) <= set(mods)
     for kernel, source in CUDA_SOURCES.items():
-        assert kernel in RENAMED["swiftmp3_tpu/ops/pallas_kernels.py"]
+        assert kernel in RENAMED["swiftmp3_tpu/ops/pallas_kernels.py"] or kernel in _public_names(_KERNELS)
         assert os.path.exists(os.path.join(ROOT, source)), source
 
 

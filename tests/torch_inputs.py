@@ -239,7 +239,8 @@ def chunk_kernel_inputs(options, device, frames: np.ndarray, la: np.ndarray = No
     """Run one chunk of the port's chunk program on `device` from a fresh
     carry (frames [B, T, spf*ch], la its lookahead or None) and return the
     first call's inputs of each kernel wrapper it reaches: {"pack":
-    (chunks, nbits, cap), "rate_sweep": (mag, gstart, iso)}."""
+    (chunks, nbits, cap), "rate_sweep": (mag, gstart, iso), "strict_sweep":
+    (args, kwargs)}."""
     import torch
 
     from swiftmp3_tpu_torch.models import pipeline
@@ -247,7 +248,7 @@ def chunk_kernel_inputs(options, device, frames: np.ndarray, la: np.ndarray = No
 
     B, T = frames.shape[:2]
     seen = {}
-    pack, sweep = kernels.pack, kernels.rate_sweep
+    pack, sweep, strict = kernels.pack, kernels.rate_sweep, kernels.strict_sweep
 
     def record_pack(chunks, nbits, cap):
         seen.setdefault("pack", (chunks.clone(), nbits.clone(), cap))
@@ -257,7 +258,13 @@ def chunk_kernel_inputs(options, device, frames: np.ndarray, la: np.ndarray = No
         seen.setdefault("rate_sweep", (mag.clone(), gstart.clone(), iso))
         return sweep(mag, gstart, iso=iso)
 
-    kernels.pack, kernels.rate_sweep = record_pack, record_sweep
+    def record_strict(*args, **kwargs):
+        seen.setdefault("strict_sweep", (
+            tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args), dict(kwargs),
+        ))
+        return strict(*args, **kwargs)
+
+    kernels.pack, kernels.rate_sweep, kernels.strict_sweep = record_pack, record_sweep, record_strict
     try:
         pipeline.make_chunk_fn(options)(
             pipeline.init_carry(B, options, device),
@@ -267,7 +274,7 @@ def chunk_kernel_inputs(options, device, frames: np.ndarray, la: np.ndarray = No
             None if la is None else torch.from_numpy(la).to(device),
         )
     finally:
-        kernels.pack, kernels.rate_sweep = pack, sweep
+        kernels.pack, kernels.rate_sweep, kernels.strict_sweep = pack, sweep, strict
     return seen
 
 
@@ -382,6 +389,35 @@ def knife_edge_sweep_input(inv_table: np.ndarray, seed: int = 3):
         pos = rng.choice(576, size=min(len(vals), 576), replace=False)
         mag[i, pos] = np.asarray(vals[: len(pos)], dtype=np.float32)
     return mag, np.asarray(starts, dtype=np.int32)
+
+
+def strict_sweep_input(n: int, seed: int = 0, linbits: bool = False, sample_rate: int = 44100):
+    """Strict-sweep granules (kernels.strict_sweep's arguments as numpy):
+    levels over six decades with the top lines cut 10-1000x at a seeded
+    line (so the grid's gains reach the count1 region), an all-zero granule,
+    gstart over 0..255 with 252-255 and 0 among them, long granules and
+    switching ones (short, START/STOP: not long) with the rate's switching
+    region-0 bounds, part2 up to 300 bits; under linbits some lines far past
+    QCAP_LINBITS. n >= 6. Returns (mag [n, 576] f32, gstart, is_long,
+    b0_switch, part2 [n])."""
+    from swiftmp3_tpu_torch.tables import mixed_switch_bound, switch_bound
+
+    rng = np.random.default_rng(seed)
+    spec = rng.standard_normal((n, 576)) * 10 ** rng.uniform(-5, 1, (n, 1))
+    cut = rng.integers(16, 576, n)
+    spec[np.arange(576)[None, :] >= cut[:, None]] *= 10 ** rng.uniform(-3, -1)
+    spec[0] = 0.0
+    if linbits:
+        spec[1::7, rng.integers(0, 576, 3)] = 3e5
+    mag = (np.maximum(np.abs(spec), 1e-10) ** 0.75).astype(np.float32)
+    gstart = rng.integers(0, 256, n).astype(np.int32)
+    gstart[2:6] = (252, 255, 0, 253)
+    is_long = rng.random(n) < 0.5
+    bounds = (switch_bound(sample_rate, True), switch_bound(sample_rate, False),
+              mixed_switch_bound(sample_rate))
+    b0_switch = rng.choice(np.asarray(bounds, np.int32), n).astype(np.int32)
+    part2 = rng.integers(0, 300, n).astype(np.int32)
+    return mag, gstart, is_long, b0_switch, part2
 
 
 # --- copies of the reference tests' signals (numpy only) ----------------------
@@ -667,6 +703,16 @@ def dc_is_options(preset: str, options_cls, mode_cls=str):
     (mode_cls: that package's Mode, or str for the port)."""
     factory, kw = DC_IS_OPTIONS[preset]
     return getattr(options_cls, factory)(**dict(kw, mode=mode_cls(kw["mode"])))
+
+
+def preset_options(preset: str):
+    """The port's MP3EncoderOptions of a key of SCAN_OPTIONS or
+    DC_IS_OPTIONS."""
+    from swiftmp3_tpu_torch.options import MP3EncoderOptions
+
+    if preset in DC_IS_OPTIONS:
+        return dc_is_options(preset, MP3EncoderOptions)
+    return scan_options(preset)
 
 
 def dc_is_streams(preset: str) -> dict:

@@ -26,14 +26,16 @@ bench audio at its rate) for two warm-up steps, then:
      integer loop over T, and phase 3 (finalize, pack, output assembly,
      carry-out). Strict and hq: ingest, stereo decision and filterbank,
      (hq) the window sequencing, the MDCT, the scalefactors and gains, the
-     strict sweep (and the share of it inside the entropy layout), the loop
+     strict sweep (and the share of it in K5), the loop
      over T, finalize, the second loop and the chunks, the pack, and the
      output assembly; --dc splits each sweep and each distortion-control
      pass out (the probe selection, quantization, bumps and rebuilt
      scalefactors before its sweep), --is the intensity analysis and
      transform and the post-walk position slots;
-  2. (strict, hq) CUDA-event device times of the strict sweep and of one
-     entropy layout on that step's own inputs;
+  2. (strict, hq) CUDA-event device times of the strict sweep on that
+     step's own inputs, and of K5 (`ops/csrc/strict_sweep.cu`) alone there:
+     by events, device-only (a CUDA graph), the host's us a call, its plain
+     version, and its bound;
   3. torch.profiler over one more step: device time by kernel, the number
      of kernel launches, and the device's busy share of the step;
   4. (compat) the filterbank stage (the counterpart of
@@ -161,9 +163,9 @@ def filterbank_stage(hist: torch.Tensor, chunk: torch.Tensor) -> dict:
 
 def _instrument(marks: dict, captured: dict, strict: bool):
     """Wrap the functions at the phase boundaries of a step: each wrapper
-    synchronises the card and stamps marks[before] / marks[after]; the
-    strict sweep's entropy layouts add their synchronised time to
-    marks["layout_s"]. The first call's arguments land in `captured`.
+    synchronises the card and stamps marks[before] / marks[after]; K5's
+    calls inside the strict sweeps add their synchronised time to
+    marks["k5_s"]. The first call's arguments land in `captured`.
     Returns a function that undoes the wrapping."""
     from swiftmp3_tpu_torch.models import pipeline
     from swiftmp3_tpu_torch.ops import dsp, kernels
@@ -196,8 +198,8 @@ def _instrument(marks: dict, captured: dict, strict: bool):
             torch.cuda.synchronize()
             if after:
                 marks[after] = time.perf_counter()
-            if name == "strict_layout_device" and "sweep_end" not in marks:
-                marks["layout_s"] = marks.get("layout_s", 0.0) + time.perf_counter() - t
+            if name == "strict_sweep" and "sweep_end" not in marks:
+                marks["k5_s"] = marks.get("k5_s", 0.0) + time.perf_counter() - t
             if name in ("rate_loop_precompute_strict", "distortion_pass"):
                 marks.setdefault(name, []).append(time.perf_counter() - t)
             return out
@@ -207,7 +209,7 @@ def _instrument(marks: dict, captured: dict, strict: bool):
     for point in points:
         wrap(*point)
     if strict:
-        wrap(dsp, "strict_layout_device", None, None)
+        wrap(kernels, "strict_sweep", None, None)
         wrap(dsp, "onset_wants_chunk", "seq_start", None)
         wrap(pipeline, "distortion_pass", None, None)
         wrap(pipeline, "intensity_stage", "is_start", "is_end")
@@ -232,7 +234,7 @@ def main(argv=None) -> int:
     if lsf:
         name = "lsf hq" if hq else "lsf strict" if strict else "lsf iso"
 
-    from swiftmp3_tpu_torch.ops import dsp
+    from swiftmp3_tpu_torch.ops import dsp, kernels
     from swiftmp3_tpu_torch.options import MP3EncoderOptions
     from swiftmp3_tpu_torch.parallel.batch import BatchEncoder
     from tests.torch_inputs import B_MAIN as B
@@ -301,7 +303,7 @@ def main(argv=None) -> int:
         if strict:
             sweep = ms("sweep_start", "sweep_end")
             first = 1e3 * marks["rate_loop_precompute_strict"][0]  # the first sweep
-            layout = marks["layout_s"] * 1e3
+            k5 = marks["k5_s"] * 1e3
             front = (
                 f"ingest+filterbank {ms('t0', 'seq_start'):.2f} ms, window sequencing "
                 f"{ms('seq_start', 'mdct_start'):.2f} ms"
@@ -311,8 +313,8 @@ def main(argv=None) -> int:
             print(f"[phases] {name} B={B} T={T} {card}: {front}, MDCT "
                   f"{ms('mdct_start', 'mdct_end'):.2f} ms, "
                   f"scalefactors+gains {ms('mdct_end', 'sweep_start'):.2f} ms, strict sweep(s) "
-                  f"{sweep:.2f} ms (the first {first:.2f} ms, its entropy layouts {layout:.2f} ms, "
-                  f"{100 * layout / first:.1f}%), loop over T {ms('sweep_end', 'loop_end'):.2f} ms, "
+                  f"{sweep:.2f} ms (the first {first:.2f} ms, K5 in the sweeps {k5:.2f} ms), loop "
+                  f"over T {ms('sweep_end', 'loop_end'):.2f} ms, "
                   f"finalize {ms('loop_end', 'finalize_end'):.2f} ms, second loop+chunks "
                   f"{ms('finalize_end', 'pack_start'):.2f} ms, pack {ms('pack_start', 'pack_end'):.2f} ms, "
                   f"output+carry+D2H {ms('pack_end', 't1'):.2f} ms, step {ms('t0', 't1'):.2f} ms "
@@ -328,14 +330,23 @@ def main(argv=None) -> int:
                 print(f"[is] intensity analysis+transform {ms('is_start', 'is_end'):.2f} ms, "
                       f"post-walk position slots {ms('post_start', 'post_end'):.2f} ms, {card}",
                       flush=True)
-            # 2. device times of the sweep and of one layout on this step's inputs
+            # 2. device times of the sweep and of K5 on this step's inputs
             a, kw = captured["rate_loop_precompute_strict"]
             sweep_ms = cuda_ms(lambda: dsp.rate_loop_precompute_strict(*a, **kw), reps=3, warmup=1)
-            a, kw = captured["strict_layout_device"]
-            layout_ms = cuda_ms(lambda: dsp.strict_layout_device(*a, **kw), reps=10)
-            print(f"[sweep] {name} sweep {sweep_ms:.2f} ms device (20 gains), one entropy layout "
-                  f"{layout_ms:.3f} ms ({100 * 20 * layout_ms / sweep_ms:.1f}% of the sweep at 20 "
-                  f"layouts), {card}", flush=True)
+            from chip_smoke import _strict_sweep_bound
+
+            a, kw = captured["strict_sweep"]
+            k5 = lambda: kernels.strict_sweep(*a, **kw)  # noqa: E731
+            k5_ms, k5_device_ms, k5_host = cuda_ms(k5, reps=20), graph_ms(k5), host_us(k5)
+            plain_ms = cuda_ms(lambda: kernels.strict_sweep_plain(*a, **kw), reps=3, warmup=1)
+            n = a[1].numel()
+            bound_ms, bound_by = _strict_sweep_bound(n)
+            print(f"[sweep] {name} sweep {sweep_ms:.2f} ms device (20 gains, K5 and the torch "
+                  f"ops around it); [K5] strict_sweep N={n}: {k5_ms:.4f} ms by events "
+                  f"({100 * bound_ms / k5_ms:.1f}% of its bound), {k5_device_ms:.4f} ms "
+                  f"device-only ({100 * bound_ms / k5_device_ms:.1f}%), host {k5_host:.1f} us a "
+                  f"call, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}), {card}",
+                  flush=True)
             captured.clear()
         else:
             print(f"[phases] B={B} T={T} {card}: phase1+sweep {ms('t0', 'phase1_end'):.2f} ms, "
