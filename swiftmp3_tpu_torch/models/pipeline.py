@@ -628,9 +628,11 @@ def make_chunk_fn(options: MP3EncoderOptions):
                         engaged = engaged & ~is_emit
                     engaged = engaged[:, None, :, None].expand(block_b.shape)
                     for _ in range(options.dc_passes):
-                        sfd, g0 = distortion_pass(
-                            pre, spectra, sfd, engaged, probe_budget, sr, options.dc_proportional
-                        )
+                        # the probe and the bumps; the pass's sweep stays outside
+                        with annotate("chunk.dc"):
+                            sfd, g0 = distortion_pass(
+                                pre, spectra, sfd, engaged, probe_budget, sr, options.dc_proportional
+                            )
                         mag_scale, part2 = sfd["mag_scale"], sfd["part2"]
                         pre = None  # release the pass's sweep before the next
                         pre = sweep(g0, mag_scale, part2)

@@ -18,12 +18,18 @@
   encoder's, and the corpus keeps the telemetry suite's flip ceiling
   against it;
 - distortion control changes the bytes of stationary content, and content
-  whose every frame holds a transient encodes as with the flag off.
+  whose every frame holds a transient encodes as with the flag off;
+- encode_corpus at the benchmark's hq_mono_dc configuration
+  (portbench/configs/hq_mono_dc.json) writes files that walk as the golden
+  sessions' do, within the same flip ceiling, and the chunk program records
+  one `chunk.dc` span a pass inside `chunk.sweep` (none below the gate).
 
 The JAX ops run under a few small jax.jit compiles.
 """
 
 import functools
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -71,6 +77,14 @@ def _row(row: str) -> tuple[str, str]:
 def _encode(o, pcm) -> bytes:
     s = new_session(o, CPU)
     return s.encode(pcm) + s.flush()
+
+
+@functools.lru_cache(maxsize=None)
+def _off_stream(stem: str) -> bytes:
+    """The flag-off encode of a telemetry stream: hq mono 128 kbps without
+    scfsi, which distortion control excludes."""
+    off = MP3EncoderOptions.hq(mode="mono", bitrate_kbps=128, sample_rate=SR, scfsi=False)
+    return _encode(off, ti.dc_is_streams("hq_dc_mono128")[stem])
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,10 +292,8 @@ def test_dc_changes_stationary_bytes():
     dc streams differ from the flag-off encode (hq mono 128 kbps without
     scfsi, which distortion control excludes) in most frames, with the same
     structure."""
-    off = MP3EncoderOptions.hq(mode="mono", bitrate_kbps=128, sample_rate=SR, scfsi=False)
-    streams = ti.dc_is_streams("hq_dc_mono128")
     for stem in ("corpus_speech", "corpus_noise"):
-        flips = _flips(_port_stream(f"hq_dc_mono128_{stem}"), _encode(off, streams[stem]))
+        flips = _flips(_port_stream(f"hq_dc_mono128_{stem}"), _off_stream(stem))
         assert flips >= 8, (stem, flips)
 
 
@@ -300,3 +312,85 @@ def test_transient_frames_encode_as_dc_off():
     assert on.distortion_control_active
     assert _encode(on, pcm) == _encode(off, pcm)
 
+
+# --- the benchmark's configuration ------------------------------------------------
+
+
+def _bench_options() -> MP3EncoderOptions:
+    """portbench/configs/hq_mono_dc.json's options, built as the benchmark
+    builds them: MP3EncoderOptions.<preset>(**options), mode by name."""
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "portbench", "configs", "hq_mono_dc.json")
+    with open(path) as fh:
+        cfg = json.load(fh)
+    kw = dict(cfg["options"], mode=cfg["options"]["mode"].lower())
+    return getattr(MP3EncoderOptions, cfg["preset"])(**kw)
+
+
+def test_hq_mono_dc_corpus_files_walk_as_the_golden_sessions():
+    """encode_corpus at the benchmark's configuration, 4 frames a step, over
+    the telemetry corpus: each file is [ID3][Xing][frames], the tag and the
+    Info frame those of the golden session's file, its frames structurally
+    the golden stream's and within the flip ceiling; the stationary streams
+    differ from the flag-off encode (distortion control is not inert on
+    the batch path)."""
+    from swiftmp3_tpu_torch.io.id3 import build_id3_tag
+    from swiftmp3_tpu_torch.io.xing import build_xing_header
+    from swiftmp3_tpu_torch.options import ID3Tag
+    from swiftmp3_tpu_torch.parallel import encode_corpus
+
+    o = _bench_options()
+    assert o == ti.dc_is_options("hq_dc_mono128", MP3EncoderOptions)
+    assert o.channels == 1 and o.distortion_control_active and not o.scfsi and o.dc_passes == 1
+    streams = ti.dc_is_streams("hq_dc_mono128")
+    tags = [ID3Tag(title=stem, artist="dc", track=i + 1) for i, stem in enumerate(streams)]
+    files = encode_corpus(o, list(streams.values()), tags=tags, device=CPU, frames_per_step=4)
+    bad = total = 0
+    for stem, tag, data in zip(streams, tags, files):
+        ref = _read(ti.golden_path(stem, "hq_dc_mono128"))
+        sizes = [f.size for f in parse_frames(ref)]
+        head = build_id3_tag(tag) + build_xing_header(o, len(sizes), len(ref), sizes)
+        assert data[: len(head)] == head, stem
+        audio = data[len(head) :]
+        bad += _flips(audio, ref)
+        total += len(sizes)
+        assert {f.size for f in parse_frames(audio)} <= {417, 418}
+        if stem in ("corpus_speech", "corpus_noise"):
+            assert _flips(audio, _off_stream(stem)) >= 8, stem
+    assert total == 78 and bad <= DC_GOLDEN_FLIP_CEILING
+
+
+@pytest.mark.parametrize(
+    "preset,passes",
+    [("hq_dc_mono128", 1), ("hq_dc3p_mono128", 3), (None, 0)],
+    ids=["one_pass", "three_passes", "below_the_gate"],
+)
+def test_a_dc_step_records_one_chunk_dc_span_a_pass_inside_the_sweep(preset, passes):
+    """Under profiling.enable(), one CPU step of a mono stream records
+    `chunk.dc` once a distortion-control pass, each inside that step's
+    `chunk.sweep`; hq joint stereo at 128 kbps with the flag on (64 kbps a
+    channel, below the gate) records none."""
+    from swiftmp3_tpu_torch.parallel import encode_corpus
+    from swiftmp3_tpu_torch.utils import profiling
+
+    if preset:
+        o, ch = ti.dc_is_options(preset, MP3EncoderOptions), 1
+    else:
+        o, ch = MP3EncoderOptions.hq(mode="joint_stereo", bitrate_kbps=128, sample_rate=SR,
+                                     distortion_control=True), 2
+        assert not o.distortion_control_active
+    pcm = (np.sin(np.arange(1152 * 2 * ch) * 0.05) * 12000).astype(np.int16)
+    profiling.disable()
+    profiling.reset()
+    profiling.enable()
+    try:
+        encode_corpus(o, [pcm], device=CPU, frames_per_step=4)
+    finally:
+        profiling.disable()
+    spans = profiling.snapshot()["spans"]
+    profiling.reset()
+    sweeps = [s for s in spans if s[0] == "chunk.sweep"]
+    dcs = [s for s in spans if s[0] == "chunk.dc"]
+    assert len(sweeps) == 1 and len(dcs) == passes
+    (sw,) = sweeps
+    # (name, start, end, thread, depth): on the sweep's thread, deeper, within it
+    assert all(d[3] == sw[3] and d[4] > sw[4] and sw[1] <= d[1] <= d[2] <= sw[2] for d in dcs)
